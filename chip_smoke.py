@@ -1,0 +1,372 @@
+"""Smoke run of the PyTorch port on one NVIDIA card (H100): builds the CUDA kernels,
+holds each against its plain PyTorch version, times them, and drives the main path
+(SD1.5 txt2img, 512x512, 25 steps, CFG 7.5, bf16, full widths, random weights).
+
+    python3 chip_smoke.py
+
+After the checks it profiles one more warm image with ``torch.profiler`` and
+prints the device time by kernel group and the device's busy share (the full
+table by kernel goes to ``chiprun_out/chip_smoke/profile.txt``).
+
+Exits non-zero on any failure, when no card is visible, or when the port's package
+is not beside this file. The last line of standard output is
+``{"ok": true, "device": {...}}``; the line before it lists every kernel with its
+launches on the main path, its error, its time and its bound. Longer logs go to
+``chiprun_out/chip_smoke/``.
+"""
+
+from __future__ import annotations
+
+import gzip
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
+# Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
+# outside them, HBM3.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+# rtol = atol. With randn q, k, v and scale d**-0.5 the output's rms is about
+# sqrt(e / Sk), 0.026 at Sk = 4096, so the limit must sit well below it. The
+# kernels' errors are at most one bf16 ulp of the output (9.8e-4) and < 1e-6 in
+# fp32; a kernel that skips its last KV tile errs by 0.03 to 0.23 on these cases.
+TOL = {torch.bfloat16: 2e-3, torch.float32: 2e-5}
+MERGES = ["h e", "l l", "he ll", "o</w> w", "hell o</w>", "w o", "wo r", "wor l",
+          "worl d</w>", "t h", "th e</w>", "a</w> b", "c a", "ca t</w>", "d o",
+          "do g</w>", "s t", "st a", "sta r</w>", "1 2", "* *"]
+PROMPT = "a photo of an astronaut riding a horse"
+WARM_IMAGES = 5
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def synthetic_merges(directory: str) -> str:
+    path = os.path.join(directory, "merges.txt.gz")
+    with gzip.open(path, "wt") as f:
+        f.write("#version: synthetic\n" + "\n".join(MERGES) + "\n")
+    return path
+
+
+def qkv(b, sq, sk, h, d, dtype, gen, fused_qkv):
+    """q, k, v as (B, S, H, D). With ``fused_qkv`` they are strided views of one
+    (B, S, 3*H*D) tensor, as the UNet's fused to_qkv projection hands them over."""
+    dev = "cuda"
+    if fused_qkv:
+        x = torch.randn(b, sq, 3 * h * d, generator=gen, device=dev).to(dtype)
+        return tuple(t.unflatten(-1, (h, d)) for t in x.chunk(3, dim=-1))
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, sk, h, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, sk, h, d, generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(b, sq, sk, h, d, dtype):
+    """Least time for the attention: 4*B*H*Sq*Sk*D operations at the peak for the
+    type, or q, k, v read once and o written once at the memory rate."""
+    flops = 4.0 * b * h * sq * sk * d
+    nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * torch.finfo(dtype).bits // 8
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_card():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"phase 1 card: {kind} | nvidia-smi: {card} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return card, kind
+
+
+def phase_build():
+    from minsdtf_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    built = kernels.build()
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s wall for {sorted(built) or 'cached'}")
+    for name, (seconds, out) in built.items():
+        log(f"  {name}: nvcc {seconds:.1f} s")
+        for line in out.splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                log("   ", line.strip())
+
+
+def _wrappers():
+    from minsdtf_tpu_torch.ops import flash_attention as fa
+
+    return {"onepass": (fa.onepass_attention, fa.onepass_attention_plain),
+            "online": (fa.online_attention, fa.online_attention_plain)}
+
+
+def phase_check(gen):
+    """Each kernel against its plain version; returns {kernel: max abs error at its
+    first (main-path) case}, or None if any case fails."""
+    cases = [  # kernel, B, Sq, Sk, H, D, dtype, fused qkv (main-path layout)
+        ("onepass", 2, 4096, 4096, 8, 40, torch.bfloat16, True),
+        ("onepass", 2, 1024, 1024, 8, 80, torch.bfloat16, True),
+        ("onepass", 1, 1000, 777, 2, 40, torch.bfloat16, False),
+        ("onepass", 1, 1024, 1024, 2, 160, torch.float32, False),
+        ("online", 1, 4096, 4096, 1, 512, torch.bfloat16, False),
+        ("online", 1, 1000, 1000, 1, 512, torch.bfloat16, False),
+        ("online", 1, 512, 600, 1, 512, torch.float32, False),
+        ("online", 1, 1024, 5000, 2, 40, torch.bfloat16, False),
+    ]
+    wrappers = _wrappers()
+    errors, failed = {}, []
+    for name, b, sq, sk, h, d, dtype, fused in cases:
+        q, k, v = qkv(b, sq, sk, h, d, dtype, gen, fused)
+        kern, plain = wrappers[name]
+        scale = d ** -0.5
+        out = kern(q, k, v, scale)
+        torch.cuda.synchronize()
+        want = plain(q, k, v, scale)
+        err = (out.float() - want.float()).abs().max().item()
+        rms = want.float().square().mean().sqrt().item()
+        ok = bool(torch.isfinite(out).all()) and torch.allclose(
+            out.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+        log(f"phase 3 {name} B{b} Sq{sq} Sk{sk} H{h} D{d} {str(dtype)[6:]}: "
+            f"max_abs_err {err:.3e} (output rms {rms:.3e}) tol {TOL[dtype]} "
+            f"{'ok' if ok else 'FAIL'}")
+        errors.setdefault(name, err)
+        if not ok:
+            failed.append(name)
+    if failed:
+        log(f"phase 3 FAILED: {failed}")
+        return None
+    return errors
+
+
+def phase_time(gen):
+    """Kernel, plain and SDPA times at the main-path shapes, bf16."""
+    timed = [  # kernel, B, S, H, D: the UNet at 64x64 and 32x32 (CFG pair), the VAE
+        ("onepass", 2, 4096, 8, 40),
+        ("onepass", 2, 1024, 8, 80),
+        ("online", 1, 4096, 1, 512),
+    ]
+    wrappers = _wrappers()
+    timings = {}
+    for name, b, s, h, d in timed:
+        q, k, v = qkv(b, s, s, h, d, torch.bfloat16, gen, fused_qkv=name == "onepass")
+        kern, plain = wrappers[name]
+        scale = d ** -0.5
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kernel_ms = time_ms(lambda: kern(q, k, v, scale), 20)
+        plain_ms = time_ms(lambda: plain(q, k, v, scale), 5, warmup=1)
+        library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale), 20)
+        bound_ms, bound_by = bound(b, s, s, h, d, torch.bfloat16)
+        timings.setdefault(name, []).append(dict(
+            shape=[b, s, h, d], ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by))
+        log(f"phase 4 {name} B{b} S{s} H{h} D{d} bf16: kernel {kernel_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), share {bound_ms / kernel_ms:.4f}")
+    return timings
+
+
+def phase_main_path(bpe):
+    """512x512, 25 steps, CFG 7.5, bf16 txt2img at full SD1.5 widths, WARM_IMAGES
+    times after a cold run; the launch counts are zeroed just before the first warm
+    image and read just after it."""
+    from minsdtf_tpu_torch import StableDiffusion
+    from minsdtf_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    pipe = StableDiffusion(512, 512, bpe_path=bpe)
+    pipe.text_to_image(PROMPT, num_steps=25, unconditional_guidance_scale=7.5, seed=1234)
+    torch.cuda.synchronize()
+    log(f"phase 5 cold run (weights init + first image): {time.perf_counter() - t0:.3f} s")
+
+    fa.onepass_attention.launches = 0
+    fa.online_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    image, latent = pipe.text_to_image(PROMPT, num_steps=25, unconditional_guidance_scale=7.5,
+                                       seed=1234, return_latent=True)
+    torch.cuda.synchronize()
+    samples = [time.perf_counter() - t0]
+    launches = {"onepass": fa.onepass_attention.launches, "online": fa.online_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for _ in range(WARM_IMAGES - 1):
+        t0 = time.perf_counter()
+        pipe.text_to_image(PROMPT, num_steps=25, unconditional_guidance_scale=7.5, seed=1234)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    s_per_img = statistics.median(samples)
+    log(f"phase 5 warm txt2img 512x512 25 steps CFG 7.5 bf16: median {s_per_img:.4f} s/img of "
+        f"{len(samples)} images {[round(t, 4) for t in samples]}, peak memory {peak_gb:.3f} GB, "
+        f"launches in the first {launches}")
+    checks = {
+        "image (1, 512, 512, 3) uint8": image.shape == (1, 512, 512, 3)
+        and str(image.dtype) == "uint8",
+        "latent finite": bool(torch.isfinite(torch.from_numpy(latent)).all()),
+        "image not constant": int(image.max()) > int(image.min()),
+        "K1 launches == 250": launches["onepass"] == 250,
+        "K2 launches == 1": launches["online"] == 1,
+    }
+    log(f"phase 5 checks: {checks}")
+    return all(checks.values()), launches, samples, peak_gb, pipe
+
+
+def _kernel_group(name: str) -> str:
+    lowered = name.lower()
+    for group, marks in (("attention K1/K2", ("minsdtf_flash", "flash_onepass", "flash_online")),
+                         ("convolution", ("conv", "fprop", "implicit", "dgrad", "winograd")),
+                         ("gemm", ("gemm", "nvjet", "cutlass", "matmul")),
+                         ("norm", ("norm",)),
+                         ("memcpy/memset", ("memcpy", "memset"))):
+        if any(m in lowered for m in marks):
+            return group
+    return "elementwise/other"
+
+
+def phase_profile(pipe, s_per_img: float):
+    """One more warm image under torch.profiler: device time by kernel name and by
+    group, and the device's busy share of the unprofiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.text_to_image(PROMPT, num_steps=25, unconditional_guidance_scale=7.5, seed=1234)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            total, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (total + e.device_time_total / 1e3, count + 1)
+    busy_ms = sum(t for t, _ in by_name.values())
+    if busy_ms == 0:
+        log("phase 7 profile: the profiler recorded no device time (not measured)")
+        return
+    groups = {}
+    for name, (t, n) in by_name.items():
+        g = groups.setdefault(_kernel_group(name), [0.0, 0])
+        g[0] += t
+        g[1] += n
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
+        f.write(f"device busy {busy_ms:.3f} ms, profiled wall {wall_ms:.3f} ms\n")
+        for name, (t, n) in rows:
+            f.write(f"{t:10.3f} ms {n:6d}  {name}\n")
+    log(f"phase 7 profile: device busy {busy_ms:.3f} ms in a profiled wall of {wall_ms:.3f} ms; "
+        f"busy share of the unprofiled {s_per_img * 1e3:.3f} ms: {busy_ms / (s_per_img * 1e3):.4f}")
+    for group, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"  group {group}: {t:.3f} ms, {n} launches, {t / busy_ms:.4f} of device time")
+    for name, (t, n) in rows[:15]:
+        log(f"  {t:9.3f} ms {n:5d}  {name[:110]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    try:
+        import minsdtf_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is not beside this script: {e}", file=sys.stderr)
+        return 1
+    os.makedirs(OUT_DIR, exist_ok=True)
+    card, kind = phase_card()
+    phase_build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errors = phase_check(gen)
+    if errors is None:
+        return 1
+    timings = phase_time(gen)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        bpe = synthetic_merges(tmp)
+        ok, launches, samples, peak_gb, pipe = phase_main_path(bpe)
+        if not ok or not small_reference_check(bpe):
+            return 1
+    s_per_img = statistics.median(samples)
+    phase_profile(pipe, s_per_img)
+
+    rows = []
+    for name, label, line in (("onepass", "flash_onepass (K1)", 153),
+                              ("online", "flash_online (K2)", 181)):
+        main_shape, *others = timings[name]
+        rows.append({"name": label, "route": "cuda",
+                     "source": "minsdtf_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": f"minsdtf_tpu/ops/flash_attention.py:{line}",
+                     "launches": launches[name], "max_abs_err": errors[name],
+                     **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "shape")},
+                     "other_shapes": others})
+    with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
+        json.dump({"card": card, "kind": kind, "s_per_img": s_per_img, "s_per_img_samples": samples,
+                   "peak_gb": peak_gb,
+                   "kernels": rows}, f, indent=1)
+    log(card)
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def small_reference_check(bpe: str) -> bool:
+    """fp32 txt2img at 256x256 with small UNet / VAE widths: on the card it runs K1
+    (1024 tokens, d=40) and K2 (VAE d=192), on the CPU the plain versions; the
+    weights are the same. Latent within 1e-3, uint8 image within 1."""
+    from minsdtf_tpu_torch import StableDiffusion
+    from minsdtf_tpu_torch.models import clip as clip_lib
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.models import vae as vae_lib
+    from minsdtf_tpu_torch.ops import flash_attention as fa
+
+    results = {}
+    unet = unet_lib.fuse_attention_projections(
+        unet_lib.init("cpu", seed=0, widths=(320, 64, 128, 128), temb_dim=128))
+    dec = vae_lib.init_decoder("cpu", seed=2, dec_widths=(192, 64, 32, 32))
+    text = clip_lib.init("cpu", seed=1)
+    for device in ("cuda", "cpu"):
+        pipe = StableDiffusion(256, 256, bpe_path=bpe, compute_dtype=torch.float32,
+                               device=device)
+        pipe._unet, pipe._decoder, pipe._text_model = (
+            m.to(device).eval() for m in (unet, dec, text))
+        before = fa.onepass_attention.launches + fa.online_attention.launches
+        results[device] = pipe.text_to_image("hello world", num_steps=3, seed=7,
+                                             return_latent=True)
+        results[device + "_launches"] = (fa.onepass_attention.launches
+                                         + fa.online_attention.launches - before)
+    (img_g, lat_g), (img_c, lat_c) = results["cuda"], results["cpu"]
+    lat_err = float(abs(lat_g - lat_c).max())
+    img_err = int(abs(img_g.astype(int) - img_c.astype(int)).max())
+    ok = (lat_err <= 1e-3 and img_err <= 1 and results["cuda_launches"] > 0
+          and results["cpu_launches"] == 0)
+    log(f"phase 6 small fp32 txt2img, card vs CPU: latent max_abs_err {lat_err:.3e} (tol 1e-3), "
+        f"image max |diff| {img_err} (tol 1), kernel launches {results['cuda_launches']} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+if __name__ == "__main__":
+    sys.exit(main())

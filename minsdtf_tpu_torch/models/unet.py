@@ -1,0 +1,255 @@
+"""SD1.5 UNet (eps-prediction) as an ``nn.Module``.
+
+conv_in 320; three down levels of [ResBlock + SpatialTransformer] x2 + stride-2
+downsample at widths 320/640/1280; down_blocks.3 = 2 ResBlocks; mid Res-Attn-Res;
+four up levels of 3 ResBlocks with skip-concat (+ SpatialTransformer except
+up_blocks.0) and nearest-2x upsamplers; exit GroupNorm+SiLU+conv -> 4. 8 heads
+everywhere; one TransformerBlock per attention (self-attn, cross-attn against the
+768-d context, GEGLU-tanh FF x4).
+
+``forward`` takes and returns the JAX package's layouts (NHWC latents, (B, S, C)
+context) and runs NCHW inside. The CFG cond/uncond pair arrives batched.
+``state_dict`` keys are the JAX package's flat module names plus ``.weight`` /
+``.bias`` (``down_blocks.0.resnets.0.conv1.weight``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from minsdtf_tpu_torch.models.common import apply_conv, apply_dense, build, norm, param_shapes
+from minsdtf_tpu_torch.ops.attention import multi_head_attention
+from minsdtf_tpu_torch.ops.basic import (
+    dense, geglu, group_norm, group_norm_silu, layer_norm, silu, upsample2x_conv3x3,
+)
+
+NUM_HEADS = 8
+CONTEXT_DIM = 768
+BLOCK_WIDTHS = (320, 640, 1280, 1280)
+
+
+class ResBlock(nn.Module):
+    """GN+SiLU+conv, + time projection, GN+SiLU+conv, + shortcut (1x1 conv iff the
+    channel count changes)."""
+
+    def __init__(self, cin: int, cout: int, temb_dim: int):
+        super().__init__()
+        self.norm1 = norm(cin)
+        self.conv1 = nn.Conv2d(cin, cout, 3)
+        self.time_emb_proj = nn.Linear(temb_dim, cout)
+        self.norm2 = norm(cout)
+        self.conv2 = nn.Conv2d(cout, cout, 3)
+        if cin != cout:
+            self.conv_shortcut = nn.Conv2d(cin, cout, 1)
+
+    def forward(self, x, temb):
+        h = group_norm_silu(x, self.norm1.weight, self.norm1.bias)
+        h = apply_conv(self.conv1, h, padding=1)
+        h = h + apply_dense(self.time_emb_proj, temb)[:, :, None, None]
+        h = group_norm_silu(h, self.norm2.weight, self.norm2.bias)
+        h = apply_conv(self.conv2, h, padding=1)
+        if hasattr(self, "conv_shortcut"):
+            x = apply_conv(self.conv_shortcut, x)
+        return h + x
+
+
+class CrossAttention(nn.Module):
+    """No-bias q/k/v projections, biased out-projection; ``context`` is ``x`` for
+    self-attention. After :meth:`fuse`, self-attention runs q/k/v as one (C, 3C)
+    product (``to_qkv``) and cross-attention k/v as one (``to_kv``)."""
+
+    def __init__(self, c: int, context_dim: int):
+        super().__init__()
+        self.to_q = nn.Linear(c, c, bias=False)
+        self.to_k = nn.Linear(context_dim, c, bias=False)
+        self.to_v = nn.Linear(context_dim, c, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(c, c)])
+
+    def fuse(self, self_attention: bool) -> None:
+        names = ("q", "k", "v") if self_attention else ("k", "v")
+        weight = torch.cat([getattr(self, f"to_{n}").weight for n in names], dim=0)
+        fused = nn.Linear(weight.shape[1], weight.shape[0], bias=False, device="meta")
+        fused.weight = nn.Parameter(weight.detach())
+        for n in names:
+            delattr(self, f"to_{n}")
+        setattr(self, "to_qkv" if self_attention else "to_kv", fused)
+
+    def forward(self, x, context):
+        if hasattr(self, "to_qkv"):
+            q, k, v = dense(x, self.to_qkv.weight).chunk(3, dim=-1)
+        elif hasattr(self, "to_kv"):
+            q = dense(x, self.to_q.weight)
+            k, v = dense(context, self.to_kv.weight).chunk(2, dim=-1)
+        else:
+            q = dense(x, self.to_q.weight)
+            k = dense(context, self.to_k.weight)
+            v = dense(context, self.to_v.weight)
+        return apply_dense(self.to_out[0], multi_head_attention(q, k, v, num_heads=NUM_HEADS))
+
+
+class GEGLUProj(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.proj = nn.Linear(c, c * 8)
+
+
+class TransformerBlock(nn.Module):
+    """LN -> self-attn, LN -> cross-attn, LN -> GEGLU FF, all residual."""
+
+    def __init__(self, c: int, context_dim: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(c)
+        self.attn1 = CrossAttention(c, c)
+        self.norm2 = nn.LayerNorm(c)
+        self.attn2 = CrossAttention(c, context_dim)
+        self.norm3 = nn.LayerNorm(c)
+        self.ff = nn.Module()
+        self.ff.net = nn.ModuleDict({"0": GEGLUProj(c), "2": nn.Linear(c * 4, c)})
+
+    def forward(self, x, context):
+        h = layer_norm(x, self.norm1.weight, self.norm1.bias)
+        x = self.attn1(h, h) + x
+        x = self.attn2(layer_norm(x, self.norm2.weight, self.norm2.bias), context) + x
+        proj = self.ff.net["0"].proj
+        h = geglu(layer_norm(x, self.norm3.weight, self.norm3.bias), proj.weight, proj.bias)
+        return apply_dense(self.ff.net["2"], h) + x
+
+
+class SpatialTransformer(nn.Module):
+    """GN -> 1x1 proj_in -> tokens -> TransformerBlock -> 1x1 proj_out + residual."""
+
+    def __init__(self, c: int, context_dim: int):
+        super().__init__()
+        self.norm = norm(c)
+        self.proj_in = nn.Conv2d(c, c, 1)
+        self.transformer_blocks = nn.ModuleList([TransformerBlock(c, context_dim)])
+        self.proj_out = nn.Conv2d(c, c, 1)
+
+    def forward(self, x, context):
+        b, c, h, w = x.shape
+        z = group_norm(x, self.norm.weight, self.norm.bias)
+        z = apply_conv(self.proj_in, z)
+        z = z.flatten(2).transpose(1, 2)  # (B, HW, C)
+        z = self.transformer_blocks[0](z, context)
+        z = z.transpose(1, 2).reshape(b, c, h, w)
+        return apply_conv(self.proj_out, z) + x
+
+
+class _Sampler(nn.Module):
+    """Holds the ``.conv`` of a down- or upsampler."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = nn.Conv2d(c, c, 3)
+
+
+class _Level(nn.Module):
+    def __init__(self, resnets, attentions=None, sampler=None, up=False):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        if attentions:
+            self.attentions = nn.ModuleList(attentions)
+        if sampler is not None:
+            setattr(self, "upsamplers" if up else "downsamplers", nn.ModuleList([sampler]))
+
+
+class UNet(nn.Module):
+    def __init__(self, widths=BLOCK_WIDTHS, temb_dim: int = 1280,
+                 context_dim: int = CONTEXT_DIM):
+        super().__init__()
+        w0, w1, w2, w3 = widths
+        self.time_embedding = nn.Module()
+        self.time_embedding.linear_1 = nn.Linear(w0, temb_dim)
+        self.time_embedding.linear_2 = nn.Linear(temb_dim, temb_dim)
+        self.conv_in = nn.Conv2d(4, w0, 3)
+
+        down = []
+        for level in range(3):
+            cin = widths[level - 1] if level > 0 else w0
+            c = widths[level]
+            down.append(_Level(
+                [ResBlock(cin, c, temb_dim), ResBlock(c, c, temb_dim)],
+                [SpatialTransformer(c, context_dim) for _ in range(2)],
+                _Sampler(c)))
+        down.append(_Level([ResBlock(w2, w3, temb_dim), ResBlock(w3, w3, temb_dim)]))
+        self.down_blocks = nn.ModuleList(down)
+
+        self.mid_block = _Level([ResBlock(w3, w3, temb_dim), ResBlock(w3, w3, temb_dim)],
+                                [SpatialTransformer(w3, context_dim)])
+
+        # up path input channels: x concat skip; the skip channels mirror the
+        # down path's stack of outputs
+        skip_cs = [w0, w0, w0, w0, w1, w1, w1, w2, w2, w2, w3, w3]
+        up = []
+        x_c = w3
+        for level, c in enumerate((w3, w2, w1, w0)):
+            resnets, attns = [], []
+            for _ in range(3):
+                resnets.append(ResBlock(x_c + skip_cs.pop(), c, temb_dim))
+                if level > 0:
+                    attns.append(SpatialTransformer(c, context_dim))
+                x_c = c
+            up.append(_Level(resnets, attns, _Sampler(c) if level < 3 else None, up=True))
+        self.up_blocks = nn.ModuleList(up)
+
+        self.conv_norm_out = norm(w0)
+        self.conv_out = nn.Conv2d(w0, 4, 3)
+
+    def forward(self, latent: torch.Tensor, t_emb: torch.Tensor,
+                context: torch.Tensor) -> torch.Tensor:
+        """(B, h, w, 4), (B, 320), (B, S, 768) -> (B, h, w, 4)."""
+        te = self.time_embedding
+        temb = silu(apply_dense(te.linear_2, silu(apply_dense(te.linear_1, t_emb))))
+
+        x = apply_conv(self.conv_in, latent.permute(0, 3, 1, 2), padding=1)
+        skips = [x]
+        for level in self.down_blocks[:3]:
+            for res, attn in zip(level.resnets, level.attentions):
+                x = attn(res(x, temb), context)
+                skips.append(x)
+            x = apply_conv(level.downsamplers[0].conv, x, stride=2, padding=1)
+            skips.append(x)
+        for res in self.down_blocks[3].resnets:
+            x = res(x, temb)
+            skips.append(x)
+
+        mid = self.mid_block
+        x = mid.resnets[1](mid.attentions[0](mid.resnets[0](x, temb), context), temb)
+
+        for i, level in enumerate(self.up_blocks):
+            for j, res in enumerate(level.resnets):
+                x = res(torch.cat([x, skips.pop()], dim=1), temb)
+                if i > 0:
+                    x = level.attentions[j](x, context)
+            if i < 3:
+                x = upsample2x_conv3x3(x, level.upsamplers[0].conv.weight,
+                                       level.upsamplers[0].conv.bias)
+
+        x = group_norm_silu(x, self.conv_norm_out.weight, self.conv_norm_out.bias)
+        return apply_conv(self.conv_out, x, padding=1).permute(0, 2, 3, 1)
+
+
+def fuse_attention_projections(unet: UNet) -> UNet:
+    """Fuse every attn1 q/k/v into ``to_qkv`` and every attn2 k/v into ``to_kv``,
+    in place: one wide product in place of three (two) on the same input."""
+    for m in unet.modules():
+        if isinstance(m, TransformerBlock):
+            if hasattr(m.attn1, "to_q") and hasattr(m.attn1, "to_k"):
+                m.attn1.fuse(self_attention=True)
+            if hasattr(m.attn2, "to_k"):
+                m.attn2.fuse(self_attention=False)
+    return unet
+
+
+def param_specs(widths=BLOCK_WIDTHS, temb_dim: int = 1280,
+                context_dim: int = CONTEXT_DIM) -> Dict[str, Tuple[int, ...]]:
+    """``{state_dict key: shape}``; the defaults are the full SD1.5 UNet."""
+    return param_shapes(lambda: UNet(widths, temb_dim, context_dim))
+
+
+def init(device, seed: int = 0, **kw) -> UNet:
+    """Random-initialized UNet on ``device`` (see :func:`models.common.build`)."""
+    return build(lambda: UNet(**kw), device, seed)

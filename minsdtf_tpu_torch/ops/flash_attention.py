@@ -1,0 +1,159 @@
+"""Flash attention on the H100: two hand-written CUDA kernels, their plain PyTorch
+versions, and the routing contract.
+
+  - K1, :func:`onepass_attention` (``csrc/flash_attention.cu``
+    ``minsdtf_flash_onepass``), replaces ``minsdtf_tpu/ops/flash_attention.py``
+    ``_onepass_kernel``: plain (not online) softmax in the exp2 domain, two sweeps
+    over the KV tiles inside each block. Compute-bound: the UNet self-attention
+    shape (16, 4096, 40) is 42.9 GFLOP on 10.5 MB.
+  - K2, :func:`online_attention` (``minsdtf_flash_online``), replaces
+    ``_kernel``: blockwise online softmax with the running (m, l, acc) carried in a
+    loop over KV tiles inside the block. Compute-bound at the VAE mid-block shape
+    (1, 4096, 512): 34.4 GFLOP on 12.6 MB.
+
+The source's header says what each kernel's design does about its bound.
+
+A wrapper launches its kernel for CUDA tensors (or raises) and computes the plain
+version for CPU tensors; each wrapper counts its launches in ``.launches``.
+Tensors are ``(B, S, H, D)`` and may be strided, with a contiguous D axis.
+
+Routing keeps the JAX split (``supports`` / ``_use_onepass``): causal or kv < 512
+stays on the plain path (:func:`minsdtf_tpu_torch.ops.attention.plain_attention`),
+kv <= 4096 with d <= 160 goes to K1, the rest to K2. The TPU's VMEM block budgets
+(``_pick_blocks``, ``_onepass_block_q``, the fp32 ``kv > 2048`` rule) are not part
+of the contract on this card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from minsdtf_tpu_torch import kernels
+
+LOG2E = 1.4426950408889634
+MIN_KV = 512
+ONEPASS_MAX_KV = 4096
+ONEPASS_MAX_D = 160
+ONLINE_MAX_D = 512
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_LIB = None
+
+
+def route(q_len: int, kv_len: int, head_dim: int, causal: bool = False) -> str:
+    """``"onepass"`` (K1), ``"online"`` (K2) or ``"plain"``."""
+    if causal or kv_len < MIN_KV:
+        return "plain"
+    if kv_len <= ONEPASS_MAX_KV and head_dim <= ONEPASS_MAX_D:
+        return "onepass"
+    return "online"
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B, Sq, H, D) x (B, Sk, H, D) -> (B, H, Sq, Sk) fp32: exact products of the
+    input-type values, fp32 sums (what the kernels' fp32 accumulation computes)."""
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+
+
+def _weighted_sum(p_rounded: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, H, Sq, Sk) x (B, Sk, H, D) -> (B, Sq, H, D) fp32."""
+    return torch.einsum("bhqk,bkhd->bqhd", p_rounded.float(), v.float())
+
+
+def onepass_attention_plain(q, k, v, scale: float) -> torch.Tensor:
+    """K1's function in plain PyTorch: scale*log2(e) folded into q and rounded to
+    the input type, p = exp2(s - max) in fp32, p rounded to the V type, output
+    ``sum(p v) / sum(p)`` over the rounded p, in the input type."""
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    s = _scores(qs, k)
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True)).to(v.dtype)
+    num = _weighted_sum(p, v)
+    den = p.float().sum(dim=-1).transpose(1, 2).unsqueeze(-1)  # (B, Sq, H, 1)
+    return (num / den).to(q.dtype)
+
+
+def online_attention_plain(q, k, v, scale: float) -> torch.Tensor:
+    """K2's function in plain PyTorch: s = q k^T * scale in fp32, p = exp(s - max),
+    ``sum(p v) / sum(p)`` with p rounded to the V type for the product and the fp32
+    p summed, output in the input type."""
+    s = _scores(q, k) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    num = _weighted_sum(p.to(v.dtype), v)
+    den = p.sum(dim=-1).transpose(1, 2).unsqueeze(-1)
+    return (num / den).to(q.dtype)
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = kernels.load("flash_attention")
+        for fn in (lib.minsdtf_flash_onepass, lib.minsdtf_flash_online):
+            fn.argtypes = _SIGNATURE
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(q, k, v, max_d: int) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name}: {t.device}/{t.dtype}, expected {q.device}/{q.dtype}")
+        if t.dim() != 4 or t.stride(-1) != 1:
+            raise ValueError(f"{name}: expected a (B, S, H, D) tensor with a contiguous "
+                             f"D axis, got shape {tuple(t.shape)} strides {t.stride()}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {q.dtype}: the kernels take bf16 and fp32")
+    b, _, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if d > max_d:
+        raise ValueError(f"head dim {d} > {max_d}")
+    if min(q.shape[1], k.shape[1]) == 0:
+        raise ValueError("empty sequence")
+
+
+def _launch(fn, q, k, v, scale: float) -> torch.Tensor:
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             b, h, sq, k.shape[1], d, strides, float(scale), _DTYPE_CODES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
+    return out
+
+
+def onepass_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """K1 on (B, S, H, D) tensors; the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return onepass_attention_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"onepass_attention: unsupported device {q.device}")
+    _check(q, k, v, ONEPASS_MAX_D)
+    out = _launch(_lib().minsdtf_flash_onepass, q, k, v, scale)
+    onepass_attention.launches += 1
+    return out
+
+
+def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """K2 on (B, S, H, D) tensors; the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return online_attention_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"online_attention: unsupported device {q.device}")
+    _check(q, k, v, ONLINE_MAX_D)
+    out = _launch(_lib().minsdtf_flash_online, q, k, v, scale)
+    online_attention.launches += 1
+    return out
+
+
+onepass_attention.launches = 0
+online_attention.launches = 0

@@ -1,0 +1,223 @@
+"""The public StableDiffusion pipeline: txt2img with DDIM and classifier-free
+guidance, on the card.
+
+``StableDiffusion(...).text_to_image(prompt, ...)`` tokenizes and parses the prompt
+on the host, encodes it with the CLIP text stack (the unconditional row rides in
+the first encode and is cached), draws the initial noise with the TF-Philox
+generator (the same seed gives the same noise as the JAX package and the
+reference), runs the step loop (:mod:`minsdtf_tpu_torch.sampler`) and decodes.
+
+No checkpoint loading yet: the weights are random, made on the target device from
+fixed seeds. ``compute_dtype`` is bf16 on CUDA unless fp32 is asked for.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+
+from minsdtf_tpu_torch import rng as rng_lib
+from minsdtf_tpu_torch import sampler
+from minsdtf_tpu_torch import scheduler as sched_lib
+from minsdtf_tpu_torch.models import clip as clip_lib
+from minsdtf_tpu_torch.models import unet as unet_lib
+from minsdtf_tpu_torch.models import vae as vae_lib
+from minsdtf_tpu_torch.models.common import cast_weights_
+from minsdtf_tpu_torch.text import prompt_weighting as lpw
+from minsdtf_tpu_torch.text.tokenizer import ClipTokenizer
+
+MAX_PROMPT_LENGTH = 77
+PAD_TOKEN_ID = 49407
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means CUDA; raise rather than fall back to the CPU quietly."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return device
+
+
+class StableDiffusion:
+    """Stable Diffusion 1.5 txt2img (DDIM-like scheduler, CFG) in PyTorch."""
+
+    def __init__(
+        self,
+        img_height: int = 512,
+        img_width: int = 512,
+        clip_skip: int = -1,
+        bpe_path: Optional[str] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+        device=None,
+    ):
+        self.img_height = int(img_height)
+        self.img_width = int(img_width)
+        for name, v in (("img_height", self.img_height), ("img_width", self.img_width)):
+            if v <= 0 or v % 64:
+                raise ValueError(
+                    f"{name}={v} is not a positive multiple of 64; the UNet's "
+                    "downsampling stack requires image sides divisible by 64")
+        self.clip_skip = int(clip_skip)
+        self.device = resolve_device(device)
+        if compute_dtype is None:
+            compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        self.compute_dtype = compute_dtype
+        self.bpe_path = bpe_path
+        self.scheduler = sched_lib.Scheduler(active_tcd=False)
+        self._unet = None
+        self._text_model = None
+        self._decoder = None
+        self._tokenizer = None
+        self._uncond = None
+
+    # ---- lazy models ------------------------------------------------------------
+
+    @property
+    def unet(self) -> unet_lib.UNet:
+        if self._unet is None:
+            unet = unet_lib.fuse_attention_projections(unet_lib.init(self.device, seed=0))
+            self._unet = cast_weights_(unet, self.compute_dtype).eval()
+        return self._unet
+
+    @property
+    def text_model(self) -> clip_lib.CLIPTextModel:
+        if self._text_model is None:
+            model = clip_lib.init(self.device, seed=1)
+            self._text_model = cast_weights_(model, self.compute_dtype).eval()
+        return self._text_model
+
+    @property
+    def decoder(self) -> vae_lib.VAEDecoder:
+        if self._decoder is None:
+            model = vae_lib.init_decoder(self.device, seed=2)
+            self._decoder = cast_weights_(model, self.compute_dtype).eval()
+        return self._decoder
+
+    @property
+    def tokenizer(self) -> ClipTokenizer:
+        if self._tokenizer is None:
+            if not self.bpe_path:
+                raise ValueError("bpe_path is required (CLIP merges file, e.g. "
+                                 "bpe_simple_vocab_16e6.txt.gz)")
+            self._tokenizer = ClipTokenizer(self.bpe_path)
+        return self._tokenizer
+
+    # ---- text encoding ----------------------------------------------------------
+
+    def _encode_text_dev(self, prompt: Union[str, List[str]]) -> torch.Tensor:
+        """Prompt -> (B, 77*m, 768) fp32 context on the device, via A1111 LPW."""
+        return lpw.get_weighted_text_embeddings(
+            self.tokenizer, self._fused_text_call, prompt,
+            model_max_length=MAX_PROMPT_LENGTH, pad_token_id=PAD_TOKEN_ID)
+
+    @torch.inference_mode()
+    def _fused_text_call(self, token_array, weight_array, embedding, splice_n,
+                         no_boseos_middle):
+        """LPW ``fused_fn`` hook -> :func:`clip.fused_lpw_encode`. While the
+        unconditional context is unset it is encoded as one more batch row."""
+        if embedding is not None or splice_n:
+            raise NotImplementedError("textual inversion is not ported yet")
+        want_uncond = self._uncond is None
+        tok = self.tokenizer
+        context, uncond = clip_lib.fused_lpw_encode(
+            self.text_model,
+            torch.as_tensor(token_array, dtype=torch.long, device=self.device),
+            None if weight_array is None else torch.as_tensor(weight_array, device=self.device),
+            m=(token_array.shape[1] - 2) // (MAX_PROMPT_LENGTH - 2),
+            with_uncond=want_uncond,
+            no_boseos_middle=bool(no_boseos_middle),
+            clip_skip=self.clip_skip,
+            bos=int(tok.start_of_text),
+            eot=int(tok.end_of_text),
+        )
+        if want_uncond:
+            self._uncond = uncond
+        return context
+
+    def encode_text(self, prompt: Union[str, List[str]]) -> np.ndarray:
+        """Prompt -> (B, 77*m, 768) fp32 context via A1111 LPW."""
+        return self._encode_text_dev(prompt).cpu().numpy()
+
+    @torch.inference_mode()
+    def _unconditional_context(self) -> torch.Tensor:
+        """[BOS] + [EOT]*76 through embed + encode, bypassing LPW; cached."""
+        if self._uncond is None:
+            tokens = torch.as_tensor(clip_lib.uncond_tokens(), device=self.device)
+            self._uncond = clip_lib.encode_tokens(self.text_model, tokens, self.clip_skip)
+        return self._uncond
+
+    # ---- generation -------------------------------------------------------------
+
+    def text_to_image(
+        self,
+        prompt,
+        negative_prompt=None,
+        batch_size=1,
+        num_steps=50,
+        unconditional_guidance_scale=7.5,
+        seed=None,
+        guidance_rescale=0.7,
+        return_latent=False,
+    ):
+        return self.generate_image(
+            self._encode_text_dev(prompt),
+            negative_prompt=negative_prompt,
+            batch_size=batch_size,
+            num_steps=num_steps,
+            unconditional_guidance_scale=unconditional_guidance_scale,
+            seed=seed,
+            guidance_rescale=guidance_rescale,
+            return_latent=return_latent,
+        )
+
+    def generate_image(
+        self,
+        encoded_text,
+        negative_prompt=None,
+        batch_size=1,
+        num_steps=50,
+        unconditional_guidance_scale=7.5,
+        diffusion_noise=None,
+        seed=None,
+        guidance_rescale=0.0,
+        eta=0.3,
+        return_latent=False,
+    ):
+        """``encoded_text``: a (S, 768) or (B, S, 768) context (numpy or tensor).
+        Returns the uint8 (B, H, W, 3) image as numpy, and the fp32 latent too when
+        ``return_latent``."""
+        if diffusion_noise is not None and seed is not None:
+            raise ValueError("`diffusion_noise` and `seed` should not both be passed to "
+                             "`generate_image`.")
+        h8, w8 = self.img_height // 8, self.img_width // 8
+        context = torch.as_tensor(encoded_text, dtype=torch.float32, device=self.device)
+        if context.dim() == 2:
+            context = context[None]
+        uncond = None
+        if unconditional_guidance_scale > 0.0:
+            uncond = (self._unconditional_context() if negative_prompt is None
+                      else self._encode_text_dev(negative_prompt))
+
+        if diffusion_noise is not None:
+            noise = np.squeeze(np.asarray(diffusion_noise, np.float32))
+            if noise.ndim == 3:
+                noise = np.repeat(noise[None], batch_size, axis=0)
+        else:
+            if seed is None:
+                seed = int(np.random.randint(0, 2**31 - 1))
+            noise = rng_lib.stateless_normal((batch_size, h8, w8, 4), seed)
+        latent0 = torch.as_tensor(noise, device=self.device).to(self.compute_dtype)
+
+        schedule = sched_lib.build_denoise_schedule(self.scheduler, num_steps, eta=eta)
+        t_embs = torch.as_tensor(sched_lib.timestep_embedding(schedule.timesteps),
+                                 device=self.device)
+        rows = {k: getattr(schedule, k) for k in sched_lib.ROW_KEYS}
+        image, latent = sampler.generate(
+            self.unet, self.decoder, latent0, context, uncond, t_embs, rows,
+            float(unconditional_guidance_scale), float(guidance_rescale))
+        image = image.cpu().numpy()
+        if return_latent:
+            return image, latent.float().cpu().numpy()
+        return image

@@ -1,0 +1,110 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+
+Every test here needs an NVIDIA card and ``nvcc`` (Hopper, ``sm_90a``) and skips
+where torch sees no CUDA device. The JAX package is not imported, so the file also
+runs where JAX is not installed; on the card, from the root of the checkout:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: ``tests/conftest.py`` imports JAX and hides the card.)
+"""
+
+import pytest
+import torch
+
+from minsdtf_tpu_torch.ops import attention as tattn
+from minsdtf_tpu_torch.ops import flash_attention as tfa
+
+pytestmark = pytest.mark.cuda
+
+# rtol = atol, well below the output's rms (about sqrt(e / Sk) with randn inputs,
+# 0.026 at Sk = 4096), so a dropped KV tile fails. bf16 allows about twice the
+# kernels' largest error on the card (9.8e-4, one bf16 ulp of outputs near 0.2);
+# fp32 differs from the plain version only in summation order.
+TOL = {torch.bfloat16: 2e-3, torch.float32: 2e-5}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(b, sq, sk, h, d, dtype, layout, device, seed=0):
+    """(B, S, H, D) q, k, v; ``layout`` picks how they lie in memory: separate
+    contiguous tensors, views of one fused (B, S, 3*H*D) projection, or
+    (B, H, S, D) tensors seen through a transpose."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if layout == "fused_qkv":
+        x = torch.randn(b, sq, 3 * h * d, generator=gen, device=device).to(dtype)
+        return tuple(t.unflatten(-1, (h, d)) for t in x.chunk(3, dim=-1))
+    shapes = ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d))
+    if layout == "heads_first":
+        return tuple(torch.randn(s[0], s[2], s[1], s[3], generator=gen, device=device)
+                     .to(dtype).transpose(1, 2) for s in shapes)
+    return tuple(torch.randn(*s, generator=gen, device=device).to(dtype) for s in shapes)
+
+
+@pytest.mark.parametrize("kernel,b,sq,sk,h,d,dtype,layout", [
+    ("onepass", 2, 512, 512, 2, 40, torch.bfloat16, "fused_qkv"),
+    ("onepass", 1, 640, 700, 3, 40, torch.bfloat16, "contiguous"),   # ragged q and kv tiles
+    ("onepass", 1, 100, 530, 1, 160, torch.float32, "heads_first"),
+    ("onepass", 1, 64, 4096, 2, 8, torch.bfloat16, "contiguous"),
+    ("online", 1, 300, 1000, 1, 512, torch.bfloat16, "contiguous"),
+    ("online", 1, 70, 513, 2, 192, torch.float32, "heads_first"),
+    ("online", 1, 256, 4100, 1, 40, torch.bfloat16, "heads_first"),
+])
+def test_kernel_matches_plain(cuda, kernel, b, sq, sk, h, d, dtype, layout):
+    wrapper = getattr(tfa, f"{kernel}_attention")
+    plain = getattr(tfa, f"{kernel}_attention_plain")
+    q, k, v = _qkv(b, sq, sk, h, d, dtype, layout, cuda)
+    scale = d ** -0.5
+    before = wrapper.launches
+    got = wrapper(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
+    want = plain(q, k, v, scale)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v = _qkv(1, 512, 512, 1, 40, torch.bfloat16, "contiguous", cuda)
+    for wrapper in (tfa.onepass_attention, tfa.online_attention):
+        before = wrapper.launches
+        with pytest.raises(ValueError, match="dtype"):
+            wrapper(q.half(), k.half(), v.half(), 0.1)
+        with pytest.raises(ValueError, match="contiguous"):
+            wrapper(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3), 0.1)
+        with pytest.raises(ValueError, match="shape"):
+            wrapper(q, k[:, :, :, :8], v, 0.1)
+        with pytest.raises(ValueError):
+            wrapper(q, k.cpu(), v, 0.1)
+        assert wrapper.launches == before
+    wide = _qkv(1, 512, 512, 1, 192, torch.bfloat16, "contiguous", cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.onepass_attention(*wide, 0.1)
+
+
+@pytest.mark.parametrize("sq,sk,heads,d,causal,route", [
+    (512, 512, 2, 40, False, "onepass"),
+    (256, 512, 1, 512, False, "online"),
+    (512, 77, 2, 40, False, "plain"),
+    (77, 77, 2, 64, True, "plain"),
+])
+def test_multi_head_attention_routes_on_the_card(cuda, sq, sk, heads, d, causal, route):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(2, sq, heads * d, generator=gen, device=cuda).bfloat16()
+    k = torch.randn(2, sk, heads * d, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(2, sk, heads * d, generator=gen, device=cuda).bfloat16()
+    before = (tfa.onepass_attention.launches, tfa.online_attention.launches)
+    got = tattn.multi_head_attention(q, k, v, num_heads=heads, causal=causal)
+    torch.cuda.synchronize()
+    after = (tfa.onepass_attention.launches, tfa.online_attention.launches)
+    assert after == (before[0] + (route == "onepass"), before[1] + (route == "online"))
+    split = [t.unflatten(-1, (heads, d)) for t in (q, k, v)]
+    want = tattn.plain_attention(*split, d ** -0.5, causal).flatten(2)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
