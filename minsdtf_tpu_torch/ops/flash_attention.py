@@ -3,9 +3,14 @@ versions, and the routing contract.
 
   - K1, :func:`onepass_attention` (``csrc/flash_attention.cu``
     ``minsdtf_flash_onepass``), replaces ``minsdtf_tpu/ops/flash_attention.py``
-    ``_onepass_kernel``: plain (not online) softmax in the exp2 domain, two sweeps
-    over the KV tiles inside each block. Compute-bound: the UNet self-attention
-    shape (16, 4096, 40) is 42.9 GFLOP on 10.5 MB.
+    ``_onepass_kernel``: the softmax in the exp2 domain, with the row sum taken
+    over the rounded p. In bf16 it is FlashAttention on ``wgmma``: Q held in
+    registers as the A operand, K/V tiles in a ``cp.async`` ring, the scores and
+    p never leaving registers, one online sweep, and the row sum from a ones
+    column on the tensor cores. At the UNet self-attention shape (16, 4096, 40)
+    the 2.7e8 exponentials, not the 42.9 GFLOP of products, set the floor, so the
+    design keeps every other per-score instruction off the issue slots. fp32 keeps
+    a two-sweep FMA kernel for the parity runs.
   - K2, :func:`online_attention` (``minsdtf_flash_online``), replaces
     ``_kernel``: blockwise online softmax with the running (m, l, acc) carried in a
     loop over KV tiles inside the block. Compute-bound at the VAE mid-block shape
@@ -15,7 +20,13 @@ The source's header says what each kernel's design does about its bound.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and computes the plain
 version for CPU tensors; each wrapper counts its launches in ``.launches``.
-Tensors are ``(B, S, H, D)`` and may be strided, with a contiguous D axis.
+Tensors are ``(B, S, H, D)`` and may be strided, with a contiguous D axis. K1's
+bf16 kernel is built for head widths 40, 80 and 160 (the SD1.5 levels over 8
+heads) and reads 16-byte rows: any other width up to 160, or a tensor whose
+pointer or strides are not 16-byte multiples, goes through a zero-padded
+contiguous copy (:func:`pad_head_dim`; zero columns change no score and add
+nothing to p v) and the output is sliced back. The main path's tensors, fused
+``to_qkv`` views included, need no copy.
 
 Routing keeps the JAX split (``supports`` / ``_use_onepass``): causal or kv < 512
 stays on the plain path (:func:`minsdtf_tpu_torch.ops.attention.plain_attention`),
@@ -36,6 +47,7 @@ LOG2E = 1.4426950408889634
 MIN_KV = 512
 ONEPASS_MAX_KV = 4096
 ONEPASS_MAX_D = 160
+ONEPASS_BF16_WIDTHS = (40, 80, 160)  # head widths K1's bf16 kernel is built for
 ONLINE_MAX_D = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
@@ -86,6 +98,24 @@ def online_attention_plain(q, k, v, scale: float) -> torch.Tensor:
     return (num / den).to(q.dtype)
 
 
+def onepass_bf16_width(head_dim: int) -> int:
+    """The head width K1's bf16 kernel runs a ``head_dim``-wide call at."""
+    return next(w for w in ONEPASS_BF16_WIDTHS if w >= head_dim)
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """A contiguous copy of the (B, S, H, D) tensor ``t`` with D zero-padded to
+    ``width``."""
+    out = t.new_zeros(*t.shape[:-1], width)
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def _rows_16b(t: torch.Tensor) -> bool:
+    """Whether every (B, S, H) row of a bf16 tensor starts on 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
 def _lib():
     global _LIB
     if _LIB is None:
@@ -131,15 +161,20 @@ def _launch(fn, q, k, v, scale: float) -> torch.Tensor:
 
 def onepass_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale: float) -> torch.Tensor:
-    """K1 on (B, S, H, D) tensors; the plain version for CPU tensors."""
+    """K1 on (B, S, H, D) tensors; the plain version for CPU tensors. bf16 inputs
+    that the kernel cannot read as they are go through :func:`pad_head_dim`."""
     if q.device.type == "cpu":
         return onepass_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"onepass_attention: unsupported device {q.device}")
     _check(q, k, v, ONEPASS_MAX_D)
+    d = q.shape[-1]
+    width = onepass_bf16_width(d) if q.dtype == torch.bfloat16 else d
+    if q.dtype == torch.bfloat16 and (width != d or not all(map(_rows_16b, (q, k, v)))):
+        q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
     out = _launch(_lib().minsdtf_flash_onepass, q, k, v, scale)
     onepass_attention.launches += 1
-    return out
+    return out if width == d else out[..., :d].contiguous()
 
 
 def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -12,16 +12,14 @@ runs where JAX is not installed; on the card, from the root of the checkout:
 import pytest
 import torch
 
+import chip_smoke
 from minsdtf_tpu_torch.ops import attention as tattn
 from minsdtf_tpu_torch.ops import flash_attention as tfa
 
 pytestmark = pytest.mark.cuda
 
-# rtol = atol, well below the output's rms (about sqrt(e / Sk) with randn inputs,
-# 0.026 at Sk = 4096), so a dropped KV tile fails. bf16 allows about twice the
-# kernels' largest error on the card (9.8e-4, one bf16 ulp of outputs near 0.2);
-# fp32 differs from the plain version only in summation order.
-TOL = {torch.bfloat16: 2e-3, torch.float32: 2e-5}
+# (rtol, atol): the on-card smoke run's limits; chip_smoke.py says why.
+TOL = chip_smoke.TOL
 
 
 @pytest.fixture
@@ -33,25 +31,29 @@ def cuda():
 
 
 def _qkv(b, sq, sk, h, d, dtype, layout, device, seed=0):
-    """(B, S, H, D) q, k, v; ``layout`` picks how they lie in memory: separate
-    contiguous tensors, views of one fused (B, S, 3*H*D) projection, or
-    (B, H, S, D) tensors seen through a transpose."""
+    """(B, S, H, D) q, k, v laid out in memory as ``layout`` says
+    (:func:`chip_smoke.qkv`)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    if layout == "fused_qkv":
-        x = torch.randn(b, sq, 3 * h * d, generator=gen, device=device).to(dtype)
-        return tuple(t.unflatten(-1, (h, d)) for t in x.chunk(3, dim=-1))
-    shapes = ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d))
-    if layout == "heads_first":
-        return tuple(torch.randn(s[0], s[2], s[1], s[3], generator=gen, device=device)
-                     .to(dtype).transpose(1, 2) for s in shapes)
-    return tuple(torch.randn(*s, generator=gen, device=device).to(dtype) for s in shapes)
+    return chip_smoke.qkv(b, sq, sk, h, d, dtype, gen, layout)
 
 
 @pytest.mark.parametrize("kernel,b,sq,sk,h,d,dtype,layout", [
     ("onepass", 2, 512, 512, 2, 40, torch.bfloat16, "fused_qkv"),
     ("onepass", 1, 640, 700, 3, 40, torch.bfloat16, "contiguous"),   # ragged q and kv tiles
     ("onepass", 1, 100, 530, 1, 160, torch.float32, "heads_first"),
-    ("onepass", 1, 64, 4096, 2, 8, torch.bfloat16, "contiguous"),
+    ("onepass", 1, 64, 4096, 2, 8, torch.bfloat16, "contiguous"),   # zero-padded to 40
+    ("onepass", 1, 1000, 777, 2, 40, torch.bfloat16, "contiguous"),  # ragged q and KV tiles
+    ("onepass", 1, 1000, 4095, 2, 40, torch.bfloat16, "contiguous"),
+    ("onepass", 1, 1000, 777, 2, 80, torch.bfloat16, "contiguous"),
+    ("onepass", 1, 1000, 4095, 2, 80, torch.bfloat16, "contiguous"),
+    ("onepass", 1, 512, 512, 2, 80, torch.bfloat16, "fused_qkv"),
+    ("onepass", 1, 512, 512, 2, 160, torch.bfloat16, "fused_qkv"),
+    ("onepass", 1, 300, 700, 2, 80, torch.bfloat16, "heads_first"),
+    ("onepass", 1, 300, 700, 2, 160, torch.bfloat16, "heads_first"),
+    ("onepass", 1, 300, 777, 2, 36, torch.bfloat16, "contiguous"),   # zero-padded to 40
+    ("onepass", 1, 300, 600, 2, 40, torch.bfloat16, "odd_stride"),   # copied to 16-byte rows
+    ("onepass", 1, 2048, 2048, 2, 40, torch.bfloat16, "adversarial"),
+    ("onepass", 1, 1000, 1000, 2, 80, torch.bfloat16, "adversarial"),
     ("online", 1, 300, 1000, 1, 512, torch.bfloat16, "contiguous"),
     ("online", 1, 70, 513, 2, 192, torch.float32, "heads_first"),
     ("online", 1, 256, 4100, 1, 40, torch.bfloat16, "heads_first"),
@@ -67,7 +69,8 @@ def test_kernel_matches_plain(cuda, kernel, b, sq, sk, h, d, dtype, layout):
     assert wrapper.launches == before + 1
     assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
     want = plain(q, k, v, scale)
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -106,5 +109,5 @@ def test_multi_head_attention_routes_on_the_card(cuda, sq, sk, heads, d, causal,
     assert after == (before[0] + (route == "onepass"), before[1] + (route == "online"))
     split = [t.unflatten(-1, (heads, d)) for t in (q, k, v)]
     want = tattn.plain_attention(*split, d ** -0.5, causal).flatten(2)
-    tol = TOL[torch.bfloat16]
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    rtol, atol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)

@@ -159,6 +159,23 @@ def test_wrappers_use_plain_version_on_cpu():
     assert (tfa.onepass_attention.launches, tfa.online_attention.launches) == before
 
 
+@pytest.mark.parametrize("d,width", [(8, 40), (36, 40), (72, 80)])
+def test_onepass_pad_path(d, width):
+    """K1's bf16 kernel runs other head widths zero-padded to the next width it is
+    built for: the padded call, sliced, equals the unpadded one (plain version)."""
+    q, k, v = (_t(a) for a in _qkv(2, 64, 96, 3, d, seed=d))
+    assert tfa.onepass_bf16_width(d) == width
+    padded = [tfa.pad_head_dim(t, width) for t in (q, k, v)]
+    for t, pt in zip((q, k, v), padded):
+        assert pt.shape == (*t.shape[:-1], width) and pt.is_contiguous()
+        assert torch.equal(pt[..., :d], t) and not pt[..., d:].any()
+    scale = d ** -0.5
+    got = tfa.onepass_attention_plain(*padded, scale)
+    torch.testing.assert_close(got[..., :d], tfa.onepass_attention_plain(q, k, v, scale),
+                               rtol=1e-6, atol=1e-6)
+    assert not got[..., d:].any()
+
+
 def _jax_route(sq, sk, d, causal):
     if not jfa.supports(sq, sk, d, causal, itemsize=2):
         return "plain"
