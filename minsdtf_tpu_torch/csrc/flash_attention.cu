@@ -6,7 +6,8 @@
 //    the V type before the PV product, and sum(p) taken over those ROUNDED p from
 //    a ones column appended to V.
 //
-//    bf16 (the main path; onepass_bf16_kernel<D> for head widths 40, 80, 160):
+//    bf16 (the main path; flash_bf16_kernel<D, EXP2_ROUNDED_SUM> for head widths
+//    40, 80, 160):
 //    Bound: at the main-path shape (16, 4096, 40) the products are
 //    4*16*4096^2*40 = 42.9 GFLOP on 10.5 MB of input, 43 us at the bf16
 //    tensor-core peak, but the 2.7e8 exponentials cost more: the special-function
@@ -60,31 +61,90 @@
 //    shared memory: sweep 1 finds the row max of the log2-domain scores, sweep 2
 //    computes p = exp2(s - m) and accumulates p v and sum(p) with fp32 FMA.
 //
-// K2 minsdtf_flash_online replaces minsdtf_tpu/ops/flash_attention.py _kernel
-//    (blockwise online softmax over a sequential KV grid axis). Here one block per
-//    (batch*head, 32-row q tile) loops over 32-row KV tiles and carries the running
-//    max m, sum l and the fp32 accumulator acc with the exp(m_prev - m_new)
-//    correction; the result is acc / l. At d = 512 (the VAE mid-block attention,
-//    (1, 4096, 512)) a 64 x 512 fp32 accumulator would be 128 KB of registers, so
-//    the q tile is cut to 32 rows and acc lives in shared memory (64 KB).
-//    Bound: 34.4 GFLOP on 12.6 MB at (1, 4096, 512), compute-bound (~35 us).
+// K2 minsdtf_flash_online replaces minsdtf_tpu/ops/flash_attention.py _kernel:
+//    blockwise online softmax over a sequential KV grid axis, in the natural-exp
+//    domain. s = (q k^T) * scale in fp32 with q as it is (not pre-scaled, not
+//    re-rounded); a running max m; p = exp(s - m) in fp32; l sums the fp32 p;
+//    acc += p (rounded to the V type) v with fp32 accumulation; both are rescaled
+//    by exp(m_prev - m_new); the output is acc / l in the input type.
 //
-// K2 and K1's fp32 body: 4 warps; bf16 inputs use WMMA 16x16x16 (mma.sync) tiles
-// with fp32 accumulation through shared memory, fp32 inputs use fp32 FMA. The
-// head dim is zero-padded to a multiple of 16 (d=40 -> 48) in shared memory; rows
+//    bf16, path A (d <= 160; flash_bf16_kernel<D, EXP_FP32_SUM>, D = 40, 80, 160):
+//    every self-attention past 4096 keys, first the 1024px UNet's 128x128 level
+//    (2, 16384, 8, 40), 125 launches an image.
+//    Bound at (2, 16384, 8, 40): 687.2 GFLOP, 0.6948 ms at the bf16 tensor-core
+//    peak, but the 4.3e9 exponentials take 1.0271 ms on the special-function
+//    units (16 per clock per SM, 132 SMs, 1.98 GHz). As for K1 at d=40, the
+//    exponentials set the floor.
+//    What the design does about it: it is K1's wgmma body (tiles of 128 q rows and
+//    64 keys, the 2-stage cp.async ring, the ragged-tail mask, no limit on Sk)
+//    with K2's softmax convention chosen at compile time. It differs from K1 in
+//    four places, each at most one instruction per score:
+//    - Q is loaded as it is, with no scale fold and no re-rounding.
+//    - p = ex2(s c - m c) with c = scale * log2(e): one FFMA per score against a
+//      per-row m c. The running max m is kept on the raw scores (the kernels take
+//      scale > 0, so the max of s is the max of s * scale; the wrapper turns a
+//      scale <= 0 into a positive one by negating or zeroing k, which leaves
+//      every score as it was), and the rescale factor is ex2((m_old - m_new) c).
+//    - l sums the unrounded fp32 p, one FADD per score in registers. It is reduced
+//      over the 4 lanes of a row once, in the epilogue, and rescaled with O.
+//    - P [V | 1] is kept and its ones column ignored, so that one body and one set
+//      of wgmma wrappers serve both kernels. The 8 extra columns cost 4 registers,
+//      and at d=40 a fifth more P V work: the products, 0.83 ms with that
+//      padding, stay below the exponentials' floor.
+//
+//    bf16, path B (d = 512; flash_online_d512_kernel, and
+//    flash_online_d512_merge_kernel when the KV range is cut): the VAE mid-block,
+//    (1, 4096, 1, 512) once per 512px image and (1, 16384, 1, 512) at 1024px.
+//    Bound at (1, 4096, 1, 512): 34.4 GFLOP, 0.0347 ms at the bf16 peak. Two facts
+//    shape it: O over 64 rows x 512 in fp32 is 256 registers a thread for one
+//    warpgroup, and S = 4096 with one head is only 64 wgmma m64 q tiles for 132 SMs.
+//    What the design does about it: it splits the output width over blocks.
+//    - One block per (batch*head, 128-row q tile, half of d, KV part), two
+//      warpgroups of 64 rows each. A warpgroup holds O (64 x 256 fp32) in 128
+//      accumulator registers a thread.
+//    - S = Q K^T over the full d = 512 (32 k16 steps of wgmma m64n32k16). Q (128 x
+//      512 bf16, 128 KB) stays in shared memory and is read as the A operand by
+//      descriptor: K-major without swizzle, LBO 128 B, SBO 64 chunks x 128 B.
+//    - K tiles (32 keys x 512) and V tiles (32 keys x this block's 256 columns)
+//      arrive in a 2-stage cp.async ring in core-matrix order, as in K1: 128 KB +
+//      2 x (32 KB + 16 KB) = 224 KB of shared memory, one block per SM.
+//    - The K/V loads from L2 bound it: at 64 q rows a block, one warpgroup, the
+//      kernel took 0.41 ms, and 0.13 ms with the loads left out (PERF.md). 128 rows
+//      share each tile, which halves the bytes per score. Each block starts its
+//      KV sweep at a tile of its own, so that the SMs do not all read one tile
+//      at the same moment.
+//    - With fewer (q tile, half) blocks than SMs (64 at S = 4096, one head), the KV
+//      range is cut into parts (split_kv: 2 at S = 4096), each block writes its
+//      part's O and (m, l) in fp32 to a workspace, and a merge kernel rescales
+//      them to the common max and writes acc / l in bf16.
+//    - Path A's K2 softmax on the S registers; p rounded to bf16 and packed into
+//      the A registers of P V (wgmma m64n256k16, V N-major).
+//    - Epilogue: O / l rounded to bf16, staged in Q's shared memory, written in
+//      16-byte stores.
+//    The price: S is computed twice per q tile, once per half, so the products
+//    are 1.5x the attention's, 51.5 GFLOP with a least time of 0.0521 ms: at most
+//    a share of 0.67 of the bound.
+//
+//    The wrapper sends bf16 only at d in {40, 80, 160, 512} with 16-byte aligned
+//    pointers and strides that are multiples of 8 elements; it zero-pads other
+//    widths.
+//
+//    fp32 (the parity runs; flash_online_kernel<float, 32, 32>): one block per
+//    (batch*head, 32-row q tile) loops over 32-row KV tiles and carries m, l and
+//    the accumulator in shared memory.
+//
+// The fp32 kernels (K1's and K2's): 4 warps, fp32 FMA products through shared
+// memory. The head dim is zero-padded to a multiple of 16 in shared memory; rows
 // past the sequence ends and the ragged KV tail are masked. All kernels read
 // strided (B, S, H, D) tensors whose D axis is contiguous and write the output
 // the same way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
-
-using namespace nvcuda;
 
 namespace {
 
@@ -102,18 +162,12 @@ struct Params {
   // strides in elements of the B, S and H axes; the D axis has stride 1
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
   float scale;
+  // K2 path B only: the KV range is cut into `splits` parts; with more than one,
+  // each part's unnormalised O and its (m, l) go to `ws` and a merge kernel
+  // writes the output (see split_kv).
+  int splits;
+  float* ws;
 };
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -134,10 +188,10 @@ __device__ void load_tile(T* dst, const T* base, long long s_stride, int row0, i
     const int r = idx / DP;
     const int c = idx - r * DP;
     const int s = row0 + r;
-    T val = from_f<T>(0.f);
+    T val = T(0.f);
     if (s < S && c < D) {
       val = base[(long long)s * s_stride + c];
-      if (mul != 1.f) val = from_f<T>(to_f(val) * mul);
+      if (mul != 1.f) val = T(float(val) * mul);
     }
     dst[idx] = val;
   }
@@ -146,68 +200,30 @@ __device__ void load_tile(T* dst, const T* base, long long s_stride, int row0, i
 // S[BQ][BK] = Q[BQ][DP] . K[BK][DP]^T in fp32.
 template <typename T, int BQ, int BK>
 __device__ void qk_tile(const T* Qs, const T* Ks, float* Ss, int DP) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int warp = threadIdx.x / 32;
-    constexpr int TN = BK / 16;
-    for (int t = warp; t < (BQ / 16) * TN; t += NWARPS) {
-      const int ti = t / TN, tj = t % TN;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.f);
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, Qs + ti * 16 * DP + kk, DP);
-        wmma::load_matrix_sync(b, Ks + tj * 16 * DP + kk, DP);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(Ss + ti * 16 * BK + tj * 16, c, BK, wmma::mem_row_major);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < BQ * BK; idx += NT) {
-      const int i = idx / BK, j = idx - (idx / BK) * BK;
-      const T* qr = Qs + i * DP;
-      const T* kr = Ks + j * DP;
-      float acc = 0.f;
-      for (int c = 0; c < DP; ++c) acc = fmaf(qr[c], kr[c], acc);
-      Ss[idx] = acc;
-    }
+  for (int idx = threadIdx.x; idx < BQ * BK; idx += NT) {
+    const int i = idx / BK, j = idx - (idx / BK) * BK;
+    const T* qr = Qs + i * DP;
+    const T* kr = Ks + j * DP;
+    float acc = 0.f;
+    for (int c = 0; c < DP; ++c) acc = fmaf(qr[c], kr[c], acc);
+    Ss[idx] = acc;
   }
 }
 
 // Acc[BQ][DP] += P[BQ][BK] . V[BK][DP] in fp32.
 template <typename T, int BQ, int BK>
 __device__ void pv_tile(const T* Ps, const T* Vs, float* Acc, int DP) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int warp = threadIdx.x / 32;
-    const int TN = DP / 16;
-    for (int t = warp; t < (BQ / 16) * TN; t += NWARPS) {
-      const int ti = t / TN, tn = t % TN;
-      float* cp = Acc + ti * 16 * DP + tn * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::load_matrix_sync(c, cp, DP, wmma::mem_row_major);
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, Ps + ti * 16 * BK + kk, BK);
-        wmma::load_matrix_sync(b, Vs + kk * DP + tn * 16, DP);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(cp, c, DP, wmma::mem_row_major);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < BQ * DP; idx += NT) {
-      const int i = idx / DP, c = idx - (idx / DP) * DP;
-      const T* pr = Ps + i * BK;
-      float acc = Acc[idx];
-      for (int j = 0; j < BK; ++j) acc = fmaf(pr[j], Vs[j * DP + c], acc);
-      Acc[idx] = acc;
-    }
+  for (int idx = threadIdx.x; idx < BQ * DP; idx += NT) {
+    const int i = idx / DP, c = idx - (idx / DP) * DP;
+    const T* pr = Ps + i * BK;
+    float acc = Acc[idx];
+    for (int j = 0; j < BK; ++j) acc = fmaf(pr[j], Vs[j * DP + c], acc);
+    Acc[idx] = acc;
   }
 }
 
 // Shared memory: Q[BQ][DP] T | KV[BK][DP] T (K, then V of the same tile) |
 // S[BQ][BK] f32 | P[BQ][BK] T | Acc[BQ][DP] f32 | m[BQ] f32 | l[BQ] f32.
-// Every piece is a multiple of 32 bytes, as WMMA's 256-bit alignment needs.
 template <typename T, int BQ, int BK>
 __host__ __device__ size_t smem_bytes(int DP) {
   return (size_t)BQ * DP * sizeof(T) + (size_t)BK * DP * sizeof(T) + (size_t)BQ * BK * 4 +
@@ -250,7 +266,7 @@ __device__ void store_out(const Params& p, const float* Acc, const float* L, int
   for (int idx = threadIdx.x; idx < BQ * p.DP; idx += NT) {
     const int r = idx / p.DP, c = idx - (idx / p.DP) * p.DP;
     const int s = q0 + r;
-    if (s < p.Sq && c < p.D) o[(long long)s * p.os + c] = from_f<T>(Acc[idx] / L[r]);
+    if (s < p.Sq && c < p.D) o[(long long)s * p.os + c] = T(Acc[idx] / L[r]);
   }
 }
 
@@ -298,9 +314,9 @@ __global__ void __launch_bounds__(NT) flash_onepass_kernel(Params p) {
       const float m = sm.M[r];
       float l = 0.f;
       for (int j = lane; j < BK; j += 32) {
-        const T pj = from_f<T>(j < nvalid ? exp2f(sm.S[r * BK + j] - m) : 0.f);
+        const T pj = T(j < nvalid ? exp2f(sm.S[r * BK + j] - m) : 0.f);
         sm.P[r * BK + j] = pj;
-        l += to_f(pj);
+        l += float(pj);
       }
       l = warp_sum(l);
       if (lane == 0) sm.L[r] += l;
@@ -343,7 +359,7 @@ __global__ void __launch_bounds__(NT) flash_online_kernel(Params p) {
       float l = 0.f;
       for (int j = lane; j < BK; j += 32) {
         const float pj = j < nvalid ? expf(sm.S[r * BK + j] * p.scale - m_new) : 0.f;
-        sm.P[r * BK + j] = from_f<T>(pj);
+        sm.P[r * BK + j] = T(pj);
         l += pj;  // the TPU kernel sums the fp32 p
       }
       l = warp_sum(l);
@@ -363,7 +379,7 @@ __global__ void __launch_bounds__(NT) flash_online_kernel(Params p) {
   store_out<T, BQ>(p, sm.Acc, sm.L, b, h, q0);
 }
 
-// ---- K1, bf16: FlashAttention on wgmma, scores in registers ----
+// ---- bf16: FlashAttention on wgmma, scores in registers (K1, and K2 path A) ----
 
 using bf16 = __nv_bfloat16;
 
@@ -484,6 +500,29 @@ __device__ __forceinline__ void wgmma_n168(float (&d)[84], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
 }
 
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t desc,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (m64 x 32, fp32) += A (m64 x k16) . B (k16 x 32), both bf16 in shared memory
+// and K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (m64 x N, fp32) += a (m64 x k16, bf16 registers) . B (k16 x N, bf16 in shared
 // memory under `desc`); B is K-major when TRANS_B is 0 and N-major when it is 1.
 // scale_d = 0 ignores d's old value.
@@ -494,6 +533,7 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4],
   else if constexpr (N == 48) wgmma_n48<TRANS_B>(d, a, desc, scale_d);
   else if constexpr (N == 88) wgmma_n88<TRANS_B>(d, a, desc, scale_d);
   else if constexpr (N == 168) wgmma_n168<TRANS_B>(d, a, desc, scale_d);
+  else if constexpr (N == 256) wgmma_n256<TRANS_B>(d, a, desc, scale_d);
   else static_assert(N == 0, "no wgmma wrapper for this N");
 }
 
@@ -517,6 +557,16 @@ struct Tile {
   static_assert(D % 8 == 0, "tiling");
 };
 
+// The two softmax conventions of the bf16 wgmma body.
+enum Softmax : int {
+  // K1: scale * log2(e) folded into q and rounded, p = exp2(s - m), the row sum
+  // over the rounded p from the ones column of P [V | 1].
+  EXP2_ROUNDED_SUM = 0,
+  // K2: q as it is, p = exp(s * scale - m * scale) by ex2, the row sum over the
+  // fp32 p in registers.
+  EXP_FP32_SUM = 1,
+};
+
 // Rows [row0, row0 + R) of one (b, h) slice into dst[R][STR] by cp.async, zero past S.
 template <int R, int CH, int STR, int NT>
 __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src, long long stride,
@@ -533,8 +583,98 @@ __device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src, long
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(Tile<D>::NT, 1) onepass_bf16_kernel(Params p) {
+// The softmax on wgmma accumulator fragments. A warp holds 16 rows of the m64
+// tile: s[j] holds columns 8j + 2t, +1 (t = lane % 4) of rows g and g + 8 (g =
+// lane / 4) in elements 0, 1 and 2, 3. m, l and the other per-row values are
+// indexed by hh: 0 for row g, 1 for row g + 8.
+
+// Scores of keys at or past Sk, in the tile that starts at key k0, to -inf.
+template <int NS>
+__device__ __forceinline__ void mask_tail(float (&s)[NS][4], int k0, int Sk, int lane) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (k0 + j * 8 + 2 * (lane & 3) + (e & 1) >= Sk) s[j][e] = -INFINITY;
+    }
+  }
+}
+
+// The running max of each row over this tile too, across the 4 lanes that share
+// the row; returns whether it grew for one of this lane's rows.
+template <int NS>
+__device__ __forceinline__ bool row_max(const float (&s)[NS][4], const float (&m)[2],
+                                        float (&m_new)[2]) {
+  bool grew = false;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float x = s[0][2 * hh];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) x = fmaxf(x, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    m_new[hh] = fmaxf(m[hh], x);
+    grew |= m_new[hh] != m[hh];
+  }
+  return grew;
+}
+
+// m = m_new, with O (and K2's row sum l) rescaled by the factor for the old max.
+// c = scale * log2(e) converts K2's raw-score max to the log2 domain.
+template <int MODE, int NO>
+__device__ __forceinline__ void rescale(float (&o)[NO][4], float (&m)[2], const float (&m_new)[2],
+                                        float c, float (&l)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float alpha = 1.f;
+    if (m_new[hh] != m[hh])
+      alpha = MODE == EXP2_ROUNDED_SUM ? ex2(m[hh] - m_new[hh]) : ex2((m[hh] - m_new[hh]) * c);
+    m[hh] = m_new[hh];
+    if (MODE == EXP_FP32_SUM) l[hh] *= alpha;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][2 * hh] *= alpha;
+      o[n][2 * hh + 1] *= alpha;
+    }
+  }
+}
+
+// p against the running max m, rounded to bf16 and packed into the A fragments of
+// P V: pa[kk] covers keys 16kk .. 16kk + 15, i.e. score tiles 2kk and 2kk + 1 (the
+// accumulator layout of two n8 column blocks is the k16 A layout). K2 adds the
+// fp32 p to this lane's part of the row sums l.
+template <int MODE, int NS>
+__device__ __forceinline__ void softmax_p(const float (&s)[NS][4], const float (&m)[2], float c,
+                                          float (&l)[2], uint32_t (&pa)[NS / 2][4]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float mc = m[hh] * c;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      float p0, p1;
+      if constexpr (MODE == EXP2_ROUNDED_SUM) {
+        p0 = ex2(s[j][2 * hh] - m[hh]);
+        p1 = ex2(s[j][2 * hh + 1] - m[hh]);
+      } else {
+        p0 = ex2(fmaf(s[j][2 * hh], c, -mc));
+        p1 = ex2(fmaf(s[j][2 * hh + 1], c, -mc));
+        l[hh] += p0;
+        l[hh] += p1;
+      }
+      pa[j / 2][(j & 1) * 2 + hh] = pack_bf16(p0, p1);
+    }
+  }
+}
+
+// A row's sum over the 4 lanes that hold its columns.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// K1's bf16 kernel (MODE = EXP2_ROUNDED_SUM) and K2's path A (EXP_FP32_SUM).
+template <int D, int MODE>
+__global__ void __launch_bounds__(Tile<D>::NT, 1) flash_bf16_kernel(Params p) {
   using T = Tile<D>;
   constexpr int BK = T::BK, STAGES = T::STAGES, STR = T::STR, NS = T::NS, NO = T::NO;
   constexpr int CH = T::CH, CHS = T::CHS, KSTEPS = T::KSTEPS, NT = T::NT, NI = T::NI;
@@ -606,8 +746,8 @@ __global__ void __launch_bounds__(Tile<D>::NT, 1) onepass_bf16_kernel(Params p) 
   const int wrow = warp * 16;
   const int mi = lane >> 3, r8 = lane & 7;  // ldmatrix: lane l gives row l % 8 of matrix l / 8
 
-  // Q as wgmma A fragments, with scale * log2(e) folded in and rounded to bf16;
-  // at d=40 the last k16 step's upper half is zero.
+  // Q as wgmma A fragments; at d=40 the last k16 step's upper half is zero. K1
+  // folds scale * log2(e) in and rounds to bf16; K2 takes q as it is.
   cp_async_wait<STAGES - 2>();
   fence_proxy_async();
   __syncthreads();
@@ -621,21 +761,23 @@ __global__ void __launch_bounds__(Tile<D>::NT, 1) onepass_bf16_kernel(Params p) 
       ldmatrix_x2(qa[KSTEPS - 1][0], qa[KSTEPS - 1][1], smem_u32(rowp + (CH / 2) * 16));
       qa[KSTEPS - 1][2] = qa[KSTEPS - 1][3] = 0u;
     }
+    if constexpr (MODE == EXP2_ROUNDED_SUM) {
 #pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
+      for (int ks = 0; ks < KSTEPS; ++ks) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&qa[ks][i]));
-        qa[ks][i] = pack_bf16(f.x * qscale, f.y * qscale);
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&qa[ks][i]));
+          qa[ks][i] = pack_bf16(f.x * qscale, f.y * qscale);
+        }
       }
     }
   }
 
   // Accumulator fragments: s[j] and o[n] hold columns 8j + 2t, +1 (8n + 2t, +1)
   // of rows g and g + 8 of the warp's 16 rows; o[NO] holds the row sum of the
-  // rounded p in every column.
+  // rounded p in every column (K1's; K2 ignores it and sums the fp32 p in l).
   float s[NS][4], o[NO + 1][4];
-  float m[2] = {-INFINITY, -INFINITY};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
@@ -662,53 +804,12 @@ __global__ void __launch_bounds__(Tile<D>::NT, 1) onepass_bf16_kernel(Params p) 
     wgmma_wait_all();
     pin(sf);
 
-    const int k0 = it * BK;
-    if (k0 + BK > p.Sk) {  // the ragged tail
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (k0 + j * 8 + 2 * (lane & 3) + (e & 1) >= p.Sk) s[j][e] = -INFINITY;
-        }
-      }
-    }
-
-    // Running row max over the 4 lanes of a row; rescale only if some max grew.
+    if (it * BK + BK > p.Sk) mask_tail(s, it * BK, p.Sk, lane);  // the ragged tail
+    // Running row max; rescale only if some max of the warp grew.
     float m_new[2];
-    bool grew = false;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float x = s[0][2 * hh];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) x = fmaxf(x, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-      m_new[hh] = fmaxf(m[hh], x);
-      grew |= m_new[hh] != m[hh];
-    }
-    if (__any_sync(0xffffffffu, grew)) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float alpha = m_new[hh] == m[hh] ? 1.f : ex2(m[hh] - m_new[hh]);
-        m[hh] = m_new[hh];
-#pragma unroll
-        for (int n = 0; n <= NO; ++n) {
-          o[n][2 * hh] *= alpha;
-          o[n][2 * hh + 1] *= alpha;
-        }
-      }
-    }
-
-    // p = exp2(s - m), rounded to bf16 and packed into the A fragments of P V:
-    // pa[kk] covers keys 16kk .. 16kk + 15, i.e. score tiles 2kk and 2kk + 1.
+    if (__any_sync(0xffffffffu, row_max(s, m, m_new))) rescale<MODE>(o, m, m_new, qscale, l);
     uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        pa[j / 2][(j & 1) * 2 + hh] =
-            pack_bf16(ex2(s[j][2 * hh] - m[hh]), ex2(s[j][2 * hh + 1] - m[hh]));
-    }
+    softmax_p<MODE>(s, m, qscale, l, pa);
 
     // O += P [V | 1]; V is N-major: LBO steps to the next 8 keys, SBO to the next 8 of d.
     pin(of);
@@ -727,11 +828,12 @@ __global__ void __launch_bounds__(Tile<D>::NT, 1) onepass_bf16_kernel(Params p) 
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const float l = o[NO][2 * hh];
+    const float sum = MODE == EXP2_ROUNDED_SUM ? o[NO][2 * hh] : quad_sum(l[hh]);
     bf16* srow = sQ + (wrow + hh * 8 + g) * STR + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(srow + n * 8) = pack_bf16(o[n][2 * hh] / l, o[n][2 * hh + 1] / l);
+      *reinterpret_cast<uint32_t*>(srow + n * 8) =
+          pack_bf16(o[n][2 * hh] / sum, o[n][2 * hh + 1] / sum);
   }
   __syncwarp();
   bf16* og = reinterpret_cast<bf16*>(p.o) + b * p.ob + h * p.oh;
@@ -746,27 +848,280 @@ __global__ void __launch_bounds__(Tile<D>::NT, 1) onepass_bf16_kernel(Params p) 
   }
 }
 
-// Lets onepass_bf16_kernel<D> take its shared memory. Set once (a function-local
-// static), so no later launch, and no CUDA graph capture, makes the call. The port
-// runs on one card: the attribute is set on the device current at the first call.
-template <int D>
-cudaError_t allow_smem_onepass_bf16() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      onepass_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile<D>::SMEM);
+// ---- K2, bf16, path B (d = 512): one block of two warpgroups per (batch*head,
+// 128-row q tile, half of d, KV part) ----
+
+struct Wide {
+  static constexpr int D = 512;
+  static constexpr int DO = D / 2;                 // output columns per block
+  static constexpr int WG = 2;                     // warpgroups per block
+  static constexpr int NT = 128 * WG;              // threads per block
+  static constexpr int BQ = 64 * WG;               // q rows: 64 per warpgroup
+  static constexpr int BK = 32;                    // keys per KV tile
+  static constexpr int STAGES = 2;
+  static constexpr int CH = D / 8;                 // 16-byte chunks per Q or K row
+  static constexpr int CHO = DO / 8;               // 16-byte chunks per V row half
+  static constexpr int NS = BK / 8;                // score n8 tiles
+  static constexpr int NO = DO / 8;                // output n8 tiles
+  static constexpr int KSTEPS = D / 16;            // k16 steps of q k^T
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int K_BYTES = BK * D * 2;
+  static constexpr int V_BYTES = BK * DO * 2;
+  static constexpr int OSTR = DO + 8;              // output staging row stride in elements
+  static constexpr size_t SMEM = size_t(Q_BYTES) + size_t(STAGES) * (K_BYTES + V_BYTES);
+  static_assert(BQ * OSTR * 2 <= Q_BYTES, "the output staging fits in Q's space");
+};
+
+// Rows [row0, row0 + R) of CH 16-byte chunks of one (b, h) slice into dst by
+// cp.async, in core-matrix order (chunk c of row r at ((r / 8) * CH + c) * 128 +
+// (r % 8) * 16), zero past S. Thread order is shared-memory order.
+template <int R, int CH, int NT>
+__device__ __forceinline__ void load_core_rows(uint32_t dst, const bf16* src, long long stride,
+                                               int row0, int S) {
+  static_assert(R % 8 == 0 && R * CH % NT == 0, "tiling");
+#pragma unroll
+  for (int i = 0; i < R * CH / NT; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    const int t = idx >> 3;
+    const int r = (t / CH) * 8 + (idx & 7), c = t % CH;
+    const bool valid = row0 + r < S;
+    cp_async16(dst + idx * 16, valid ? src + (long long)(row0 + r) * stride + c * 8 : src, valid);
+  }
+}
+
+__global__ void __launch_bounds__(Wide::NT, 1) flash_online_d512_kernel(Params p) {
+  using W = Wide;
+  constexpr int BK = W::BK, NS = W::NS, NO = W::NO, STAGES = W::STAGES;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw;                   // [BQ / 8][CH][8][16 bytes]; later the output
+  unsigned char* sK = sQ + W::Q_BYTES;            // [STAGES][BK / 8][CH][8][16 bytes]
+  unsigned char* sV = sK + STAGES * W::K_BYTES;   // [STAGES][BK / 8][CHO][8][16 bytes]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int half = blockIdx.x & 1;
+  const int q0 = (blockIdx.x >> 1) * W::BQ;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const bf16* qg = reinterpret_cast<const bf16*>(p.q) + b * p.qb + h * p.qh;
+  const bf16* kg = reinterpret_cast<const bf16*>(p.k) + b * p.kb + h * p.kh;
+  const bf16* vg = reinterpret_cast<const bf16*>(p.v) + b * p.vb + h * p.vh + half * W::DO;
+  // This block's part of the KV tiles: [t0, t0 + ntiles). It starts at tile
+  // t0 + rot and wraps around, rot differing between q tiles, so that the blocks
+  // running at once read different K/V tiles: one tile read by every SM at the
+  // same moment measured slower (PERF.md).
+  const int per = ((p.Sk + BK - 1) / BK + p.splits - 1) / p.splits;
+  const int t0 = blockIdx.z * per;
+  const int ntiles = min(per, (p.Sk + BK - 1) / BK - t0);
+  const int rot = (blockIdx.x >> 1) % ntiles;
+  auto tile_of = [&](int it) { return t0 + (it + rot < ntiles ? it + rot : it + rot - ntiles); };
+  auto load_kv = [&](int it) {
+    const int key0 = tile_of(it) * BK;
+    load_core_rows<BK, W::CH, W::NT>(smem_u32(sK + (it % STAGES) * W::K_BYTES), kg, p.ks, key0,
+                                     p.Sk);
+    load_core_rows<BK, W::CHO, W::NT>(smem_u32(sV + (it % STAGES) * W::V_BYTES), vg, p.vs, key0,
+                                      p.Sk);
+  };
+
+  // Q and tile 0 form the first group; tiles 0 .. STAGES-2 are in flight before the loop.
+  load_core_rows<W::BQ, W::CH, W::NT>(smem_u32(sQ), qg, p.qs, q0, p.Sq);
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < ntiles) load_kv(t);
+    cp_async_commit();
+  }
+
+  const float c = p.scale * LOG2E;
+  float s[NS][4], o[NO][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  auto& sf = reinterpret_cast<float(&)[BK / 2]>(s);
+  auto& of = reinterpret_cast<float(&)[W::DO / 2]>(o);
+  const uint32_t qs = smem_u32(sQ) + (warp / 4) * 64 * W::CH * 16;  // the warpgroup's 64 rows
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile it has landed, and every warp is done with tile it - 1
+    if (it + STAGES - 1 < ntiles) load_kv(it + STAGES - 1);
+    cp_async_commit();
+    const uint32_t kb = smem_u32(sK + (it % STAGES) * W::K_BYTES);
+    const uint32_t vb = smem_u32(sV + (it % STAGES) * W::V_BYTES);
+
+    // S = Q K^T over all of d, Q and K both K-major in shared memory: LBO steps to
+    // the next 8 of d, SBO to the next 8 rows.
+    pin(sf);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < W::KSTEPS; ++ks)
+      wgmma_ss_n32(sf, gmma_desc(qs + ks * 256, 128, W::CH * 128),
+                   gmma_desc(kb + ks * 256, 128, W::CH * 128), ks > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(sf);
+
+    const int key0 = tile_of(it) * BK;
+    if (key0 + BK > p.Sk) mask_tail(s, key0, p.Sk, lane);  // the ragged tail
+    float m_new[2];
+    if (__any_sync(0xffffffffu, row_max(s, m, m_new))) rescale<EXP_FP32_SUM>(o, m, m_new, c, l);
+    uint32_t pa[BK / 16][4];
+    softmax_p<EXP_FP32_SUM>(s, m, c, l, pa);
+
+    // O += P V over this block's 256 columns; V is N-major: LBO steps to the next
+    // 8 keys, SBO to the next 8 of d.
+    pin(of);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma<W::DO, 1>(of, pa[kk], gmma_desc(vb + kk * 2 * W::CHO * 128, W::CHO * 128, 128), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(of);
+  }
+  cp_async_wait<0>();
+  const int g = lane >> 2, t4 = lane & 3, wrow = warp * 16;
+  if (p.splits > 1) {
+    // This part's O (not normalised) and (m, l) of each row, in fp32, for the merge.
+    const long long row0 = ((long long)blockIdx.z * p.B * p.H + blockIdx.y) * p.Sq + q0 + wrow;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float sum = quad_sum(l[hh]);
+      const int r = hh * 8 + g;
+      if (q0 + wrow + r < p.Sq) {
+        float* orow = p.ws + (row0 + r) * W::D + half * W::DO + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          *reinterpret_cast<float2*>(orow + n * 8) = make_float2(o[n][2 * hh], o[n][2 * hh + 1]);
+        if (half == 0 && t4 == 0) {
+          float* ml = p.ws + (long long)p.splits * p.B * p.H * p.Sq * W::D + (row0 + r) * 2;
+          ml[0] = m[hh];
+          ml[1] = sum;
+        }
+      }
+    }
+    return;
+  }
+  __syncthreads();  // every warp's products have read Q, whose space takes the output
+
+  // Epilogue: O / l into rows of OSTR elements, then 16-byte stores of the warp's
+  // 16 rows that lie inside the sequence.
+  bf16* so = reinterpret_cast<bf16*>(sQ);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float sum = quad_sum(l[hh]);
+    bf16* srow = so + (wrow + hh * 8 + g) * W::OSTR + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(srow + n * 8) =
+          pack_bf16(o[n][2 * hh] / sum, o[n][2 * hh + 1] / sum);
+  }
+  __syncwarp();
+  bf16* og = reinterpret_cast<bf16*>(p.o) + b * p.ob + h * p.oh + half * W::DO;
+#pragma unroll
+  for (int i = 0; i < 16 * W::CHO / 32; ++i) {
+    const int idx = lane + 32 * i;
+    const int r = idx / W::CHO, ch = idx % W::CHO;
+    const int sq = q0 + wrow + r;
+    if (sq < p.Sq)
+      *reinterpret_cast<uint4*>(og + (long long)sq * p.os + ch * 8) =
+          *reinterpret_cast<const uint4*>(so + (wrow + r) * W::OSTR + ch * 8);
+  }
+}
+
+// Path B's merge of the KV parts: for each row, m = max of the parts' m, and the
+// output is sum(O_s a_s) / sum(l_s a_s) with a_s = exp(m_s - m), in bf16. One
+// thread per 8 columns of a row.
+__global__ void __launch_bounds__(256) flash_online_d512_merge_kernel(Params p) {
+  constexpr int D = Wide::D;
+  const long long rows = (long long)p.B * p.H * p.Sq;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * (D / 8)) return;
+  const long long row = idx / (D / 8);
+  const int col = int(idx % (D / 8)) * 8;
+  const float* ml = p.ws + p.splits * rows * D;
+  const float c = p.scale * LOG2E;
+  float m = -INFINITY;
+  for (int s = 0; s < p.splits; ++s) m = fmaxf(m, ml[(s * rows + row) * 2]);
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, sum = 0.f;
+  for (int s = 0; s < p.splits; ++s) {
+    const float a = ex2((ml[(s * rows + row) * 2] - m) * c);
+    sum += ml[(s * rows + row) * 2 + 1] * a;
+    const float4* os = reinterpret_cast<const float4*>(p.ws + (s * rows + row) * D + col);
+    const float4 x = os[0], y = os[1];
+    acc[0] += x.x * a; acc[1] += x.y * a; acc[2] += x.z * a; acc[3] += x.w * a;
+    acc[4] += y.x * a; acc[5] += y.y * a; acc[6] += y.z * a; acc[7] += y.w * a;
+  }
+  const int bh = int(row / p.Sq), sq = int(row % p.Sq);
+  bf16* og = reinterpret_cast<bf16*>(p.o) + (bh / p.H) * p.ob + (bh % p.H) * p.oh +
+             (long long)sq * p.os + col;
+  *reinterpret_cast<uint4*>(og) = make_uint4(pack_bf16(acc[0] / sum, acc[1] / sum),
+                                             pack_bf16(acc[2] / sum, acc[3] / sum),
+                                             pack_bf16(acc[4] / sum, acc[5] / sum),
+                                             pack_bf16(acc[6] / sum, acc[7] / sum));
+}
+
+// The number of KV parts of a path-B call: with fewer (q tile, half) blocks than
+// the card has SMs (at S = 4096 and one head, 64 blocks for 132 SMs), the KV
+// range is cut into as many parts as keep the blocks within one wave, each part
+// having at least one tile; else 1.
+int split_kv(int B, int H, int Sq, int Sk) {
+  static const int sms = [] {  // the port runs on one card: the current device at first use
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return n;
+  }();
+  const long long blocks = 2LL * ((Sq + Wide::BQ - 1) / Wide::BQ) * B * H;
+  const int ntiles = (Sk + Wide::BK - 1) / Wide::BK;
+  int splits = (int)std::min<long long>(std::max<long long>(1, sms / blocks), ntiles);
+  const int per = (ntiles + splits - 1) / splits;
+  return (ntiles + per - 1) / per;  // no part left empty
+}
+
+// A kernel's dynamic shared memory limit, set once per kernel (a function-local
+// static at each call site), so no later launch, and no CUDA graph capture, makes
+// the call. The port runs on one card: the attribute is set on the device current
+// at the first call.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int D, int MODE>
+cudaError_t allow_smem_bf16() {
+  static const cudaError_t err = allow_smem(flash_bf16_kernel<D, MODE>, Tile<D>::SMEM);
   return err;
 }
 
-template <int D>
-int launch_onepass_bf16(const Params& p, cudaStream_t stream) {
+cudaError_t allow_smem_d512() {
+  static const cudaError_t err = allow_smem(flash_online_d512_kernel, Wide::SMEM);
+  return err;
+}
+
+template <int D, int MODE>
+int launch_bf16(const Params& p, cudaStream_t stream) {
   using T = Tile<D>;
-  const cudaError_t err = allow_smem_onepass_bf16<D>();
+  const cudaError_t err = allow_smem_bf16<D, MODE>();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.Sq + T::BQ - 1) / T::BQ, p.B * p.H);
-  onepass_bf16_kernel<D><<<grid, T::NT, T::SMEM, stream>>>(p);
+  flash_bf16_kernel<D, MODE><<<grid, T::NT, T::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// The bf16 kernel's cp.async and 16-byte stores need 16-byte aligned rows.
+int launch_d512(const Params& p, cudaStream_t stream) {
+  const cudaError_t err = allow_smem_d512();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(2 * ((p.Sq + Wide::BQ - 1) / Wide::BQ), p.B * p.H, p.splits);
+  flash_online_d512_kernel<<<grid, Wide::NT, Wide::SMEM, stream>>>(p);
+  if (p.splits == 1) return (int)cudaGetLastError();
+  const long long threads = (long long)p.B * p.H * p.Sq * (Wide::D / 8);
+  flash_online_d512_merge_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 kernels' cp.async and 16-byte stores need 16-byte aligned rows.
 bool aligned16(const Params& p, const long long* st) {
   const void* ptrs[4] = {p.q, p.k, p.v, p.o};
   for (const void* ptr : ptrs)
@@ -776,14 +1131,19 @@ bool aligned16(const Params& p, const long long* st) {
   return true;
 }
 
-template <int D>
-int blocks_per_sm_onepass_bf16() {
+template <typename K>
+int blocks_per_sm(cudaError_t allowed, K kernel, int threads, size_t smem) {
   int n = 0;
-  if (allow_smem_onepass_bf16<D>() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, onepass_bf16_kernel<D>, Tile<D>::NT,
-                                                    Tile<D>::SMEM) != cudaSuccess)
+  if (allowed != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess)
     return 0;
   return n;
+}
+
+template <int D, int MODE>
+int blocks_per_sm_bf16() {
+  return blocks_per_sm(allow_smem_bf16<D, MODE>(), flash_bf16_kernel<D, MODE>, Tile<D>::NT,
+                       Tile<D>::SMEM);
 }
 
 template <typename T, int BQ, int BK, bool ONEPASS>
@@ -795,10 +1155,8 @@ int launch(const Params& p, cudaStream_t stream) {
     kern = flash_online_kernel<T, BQ, BK>;
   }
   const size_t smem = smem_bytes<T, BQ, BK>(p.DP);
-  // Set once, to the most any head width can need (see launch_onepass_bf16).
-  static const cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_bytes<T, BQ, BK>(ONEPASS ? 160 : 512));
+  // Set once, to the most any head width can need (see allow_smem).
+  static const cudaError_t err = allow_smem(kern, smem_bytes<T, BQ, BK>(ONEPASS ? 160 : 512));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.H);
   kern<<<grid, NT, smem, stream>>>(p);
@@ -823,6 +1181,8 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int B, 
   p.vb = st[6]; p.vs = st[7]; p.vh = st[8];
   p.ob = st[9]; p.os = st[10]; p.oh = st[11];
   p.scale = scale;
+  p.splits = 1;
+  p.ws = nullptr;
   return p;
 }
 
@@ -845,9 +1205,9 @@ extern "C" int minsdtf_flash_onepass(const void* q, const void* k, const void* v
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (!aligned16(p, strides)) return (int)cudaErrorMisalignedAddress;
-    if (D == 40) return launch_onepass_bf16<40>(p, s);
-    if (D == 80) return launch_onepass_bf16<80>(p, s);
-    if (D == 160) return launch_onepass_bf16<160>(p, s);
+    if (D == 40) return launch_bf16<40, EXP2_ROUNDED_SUM>(p, s);
+    if (D == 80) return launch_bf16<80, EXP2_ROUNDED_SUM>(p, s);
+    if (D == 160) return launch_bf16<160, EXP2_ROUNDED_SUM>(p, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 0) return launch<float, 64, 64, true>(p, s);
@@ -857,20 +1217,58 @@ extern "C" int minsdtf_flash_onepass(const void* q, const void* k, const void* v
 // Blocks of K1's bf16 kernel at head width D (40, 80 or 160) that one SM holds at
 // once, by the CUDA occupancy calculator; 0 on an error.
 extern "C" int minsdtf_onepass_bf16_blocks_per_sm(int D) {
-  if (D == 40) return blocks_per_sm_onepass_bf16<40>();
-  if (D == 80) return blocks_per_sm_onepass_bf16<80>();
-  if (D == 160) return blocks_per_sm_onepass_bf16<160>();
+  if (D == 40) return blocks_per_sm_bf16<40, EXP2_ROUNDED_SUM>();
+  if (D == 80) return blocks_per_sm_bf16<80, EXP2_ROUNDED_SUM>();
+  if (D == 160) return blocks_per_sm_bf16<160, EXP2_ROUNDED_SUM>();
   return 0;
 }
 
+// Bytes of fp32 workspace that minsdtf_flash_online needs for these shapes: a bf16
+// call at D = 512 whose KV range is cut into parts (split_kv); 0 otherwise.
+extern "C" long long minsdtf_online_workspace_bytes(int B, int H, int Sq, int Sk, int D,
+                                                    int dtype) {
+  if (dtype != 1 || D != 512 || bad_shape(B, H, Sq, Sk, D, 512)) return 0;
+  const int splits = split_kv(B, H, Sq, Sk);
+  return splits > 1 ? 4LL * splits * B * H * Sq * (D + 2) : 0;
+}
+
+// The same arguments as minsdtf_flash_onepass, and `workspace`: device memory of
+// minsdtf_online_workspace_bytes bytes (nullptr when that is 0). K2 in bf16 takes
+// D in {40, 80, 160} (path A) or 512 (path B) with 16-byte aligned pointers,
+// strides that are multiples of 8 and scale > 0.
 extern "C" int minsdtf_flash_online(const void* q, const void* k, const void* v, void* o,
                                     int B, int H, int Sq, int Sk, int D,
                                     const long long* strides, float scale, int dtype,
-                                    void* stream) {
+                                    void* stream, void* workspace) {
   if (bad_shape(B, H, Sq, Sk, D, 512)) return (int)cudaErrorInvalidValue;
-  const Params p = make_params(q, k, v, o, B, H, Sq, Sk, D, strides, scale);
+  Params p = make_params(q, k, v, o, B, H, Sq, Sk, D, strides, scale);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch<__nv_bfloat16, 32, 32, false>(p, s);
+  if (dtype == 1) {
+    if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
+    if (!aligned16(p, strides)) return (int)cudaErrorMisalignedAddress;
+    if (D == 40) return launch_bf16<40, EXP_FP32_SUM>(p, s);
+    if (D == 80) return launch_bf16<80, EXP_FP32_SUM>(p, s);
+    if (D == 160) return launch_bf16<160, EXP_FP32_SUM>(p, s);
+    if (D == 512) {
+      p.splits = split_kv(B, H, Sq, Sk);
+      p.ws = static_cast<float*>(workspace);
+      if (p.splits > 1 && (p.ws == nullptr || reinterpret_cast<uintptr_t>(p.ws) % 16))
+        return (int)cudaErrorInvalidValue;
+      return launch_d512(p, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0) return launch<float, 32, 32, false>(p, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of K2's bf16 kernel at head width D (40, 80, 160: path A; 512: path B)
+// that one SM holds at once, by the CUDA occupancy calculator; 0 on an error.
+extern "C" int minsdtf_online_bf16_blocks_per_sm(int D) {
+  if (D == 40) return blocks_per_sm_bf16<40, EXP_FP32_SUM>();
+  if (D == 80) return blocks_per_sm_bf16<80, EXP_FP32_SUM>();
+  if (D == 160) return blocks_per_sm_bf16<160, EXP_FP32_SUM>();
+  if (D == 512)
+    return blocks_per_sm(allow_smem_d512(), flash_online_d512_kernel, Wide::NT, Wide::SMEM);
+  return 0;
 }

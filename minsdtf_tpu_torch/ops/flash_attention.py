@@ -12,21 +12,26 @@ versions, and the routing contract.
     design keeps every other per-score instruction off the issue slots. fp32 keeps
     a two-sweep FMA kernel for the parity runs.
   - K2, :func:`online_attention` (``minsdtf_flash_online``), replaces
-    ``_kernel``: blockwise online softmax with the running (m, l, acc) carried in a
-    loop over KV tiles inside the block. Compute-bound at the VAE mid-block shape
-    (1, 4096, 512): 34.4 GFLOP on 12.6 MB.
+    ``_kernel``: blockwise online softmax in the natural-exp domain, with the
+    running (m, l, acc) carried over KV tiles and l summing the fp32 p. In bf16 it
+    has two kernels. Path A (head widths 40, 80, 160; the 1024px UNet's
+    (2, 16384, 8, 40)) is K1's wgmma body with K2's softmax convention: the
+    exponentials set its floor, as for K1. Path B (d = 512; the VAE mid-block,
+    (1, 4096, 1, 512) at 512px) splits the output width over blocks, one
+    warpgroup each holding a 64 x 256 fp32 accumulator, so that 4096 rows of one
+    head fill the card. fp32 keeps a kernel with its state in shared memory.
 
 The source's header says what each kernel's design does about its bound.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and computes the plain
 version for CPU tensors; each wrapper counts its launches in ``.launches``.
-Tensors are ``(B, S, H, D)`` and may be strided, with a contiguous D axis. K1's
-bf16 kernel is built for head widths 40, 80 and 160 (the SD1.5 levels over 8
-heads) and reads 16-byte rows: any other width up to 160, or a tensor whose
-pointer or strides are not 16-byte multiples, goes through a zero-padded
-contiguous copy (:func:`pad_head_dim`; zero columns change no score and add
-nothing to p v) and the output is sliced back. The main path's tensors, fused
-``to_qkv`` views included, need no copy.
+Tensors are ``(B, S, H, D)`` and may be strided, with a contiguous D axis. The
+bf16 kernels are built for head widths 40, 80 and 160 (the SD1.5 levels over 8
+heads), and K2's also for 512 (the VAE), and read 16-byte rows: any other width,
+or a tensor whose pointer or strides are not 16-byte multiples, goes through a
+zero-padded contiguous copy (:func:`pad_head_dim`; zero columns change no score
+and add nothing to p v) and the output is sliced back. The main path's tensors,
+fused ``to_qkv`` views included, need no copy.
 
 Routing keeps the JAX split (``supports`` / ``_use_onepass``): causal or kv < 512
 stays on the plain path (:func:`minsdtf_tpu_torch.ops.attention.plain_attention`),
@@ -49,9 +54,11 @@ ONEPASS_MAX_KV = 4096
 ONEPASS_MAX_D = 160
 ONEPASS_BF16_WIDTHS = (40, 80, 160)  # head widths K1's bf16 kernel is built for
 ONLINE_MAX_D = 512
+ONLINE_BF16_WIDTHS = (40, 80, 160, 512)  # K2's bf16 kernels: path A, then path B
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ONLINE_SIGNATURE = _SIGNATURE + [ctypes.c_void_p]  # + the workspace
 _LIB = None
 
 
@@ -103,6 +110,12 @@ def onepass_bf16_width(head_dim: int) -> int:
     return next(w for w in ONEPASS_BF16_WIDTHS if w >= head_dim)
 
 
+def online_bf16_width(head_dim: int) -> int:
+    """The head width K2's bf16 kernels run a ``head_dim``-wide call at: 40, 80 or
+    160 (path A), else 512 (path B)."""
+    return next(w for w in ONLINE_BF16_WIDTHS if w >= head_dim)
+
+
 def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
     """A contiguous copy of the (B, S, H, D) tensor ``t`` with D zero-padded to
     ``width``."""
@@ -119,12 +132,22 @@ def _rows_16b(t: torch.Tensor) -> bool:
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = kernels.load("flash_attention")
-        for fn in (lib.minsdtf_flash_onepass, lib.minsdtf_flash_online):
-            fn.argtypes = _SIGNATURE
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind(kernels.load("flash_attention"))
     return _LIB
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument and result types of the library's C functions."""
+    lib.minsdtf_flash_onepass.argtypes = _SIGNATURE
+    lib.minsdtf_flash_online.argtypes = _ONLINE_SIGNATURE
+    lib.minsdtf_online_workspace_bytes.argtypes = [ctypes.c_int] * 6
+    lib.minsdtf_online_workspace_bytes.restype = ctypes.c_longlong
+    for fn in (lib.minsdtf_flash_onepass, lib.minsdtf_flash_online):
+        fn.restype = ctypes.c_int
+    for fn in (lib.minsdtf_onepass_bf16_blocks_per_sm, lib.minsdtf_online_bf16_blocks_per_sm):
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _check(q, k, v, max_d: int) -> None:
@@ -146,46 +169,86 @@ def _check(q, k, v, max_d: int) -> None:
         raise ValueError("empty sequence")
 
 
-def _launch(fn, q, k, v, scale: float) -> torch.Tensor:
+def _launch(fn, q, k, v, scale: float, *extra) -> torch.Tensor:
     b, sq, h, d = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, h, sq, k.shape[1], d, strides, float(scale), _DTYPE_CODES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             torch.cuda.current_stream(q.device).cuda_stream, *extra)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
     return out
 
 
+def _launch_onepass(q, k, v, scale: float) -> torch.Tensor:
+    return _launch(_lib().minsdtf_flash_onepass, q, k, v, scale)
+
+
+def _launch_online(q, k, v, scale: float) -> torch.Tensor:
+    """K2's entry, with the fp32 workspace it asks for (path B's KV parts)."""
+    lib = _lib()
+    b, sq, h, d = q.shape
+    nbytes = lib.minsdtf_online_workspace_bytes(b, h, sq, k.shape[1], d, _DTYPE_CODES[q.dtype])
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
+    return _launch(lib.minsdtf_flash_online, q, k, v, scale, ws.data_ptr() if nbytes else None)
+
+
+def _launch_bf16(launch, q, k, v, scale: float, width: int) -> torch.Tensor:
+    """``launch`` for a bf16 kernel built for head width ``width``: inputs of
+    another width, or whose rows do not start on 16 bytes, go through
+    :func:`pad_head_dim`, and the output is sliced back."""
+    d = q.shape[-1]
+    if width != d or not all(map(_rows_16b, (q, k, v))):
+        q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
+    out = launch(q, k, v, scale)
+    return out if width == d else out[..., :d].contiguous()
+
+
 def onepass_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale: float) -> torch.Tensor:
-    """K1 on (B, S, H, D) tensors; the plain version for CPU tensors. bf16 inputs
-    that the kernel cannot read as they are go through :func:`pad_head_dim`."""
+    """K1 on (B, S, H, D) tensors; the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return onepass_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"onepass_attention: unsupported device {q.device}")
     _check(q, k, v, ONEPASS_MAX_D)
-    d = q.shape[-1]
-    width = onepass_bf16_width(d) if q.dtype == torch.bfloat16 else d
-    if q.dtype == torch.bfloat16 and (width != d or not all(map(_rows_16b, (q, k, v)))):
-        q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
-    out = _launch(_lib().minsdtf_flash_onepass, q, k, v, scale)
+    if q.dtype == torch.bfloat16:
+        out = _launch_bf16(_launch_onepass, q, k, v, scale, onepass_bf16_width(q.shape[-1]))
+    else:
+        out = _launch_onepass(q, k, v, scale)
     onepass_attention.launches += 1
-    return out if width == d else out[..., :d].contiguous()
+    return out
+
+
+def positive_scale(k: torch.Tensor, scale: float) -> tuple[torch.Tensor, float]:
+    """(k', scale') with ``scale' > 0`` whose scores (q k'^T) scale' equal (q k^T)
+    scale bit for bit: a negative scale negates k, a zero scale zeroes it (both
+    exact). The bf16 kernels keep the running max on the unscaled scores, which is
+    the max of the scaled ones only for scale > 0."""
+    if scale < 0:
+        return -k, -scale
+    if scale == 0:
+        return torch.zeros_like(k), 1.0
+    return k, scale
 
 
 def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float) -> torch.Tensor:
-    """K2 on (B, S, H, D) tensors; the plain version for CPU tensors."""
+    """K2 on (B, S, H, D) tensors; the plain version for CPU tensors. bf16 runs
+    path A at d <= 160 and path B above, with a scale of any sign
+    (:func:`positive_scale`)."""
     if q.device.type == "cpu":
         return online_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"online_attention: unsupported device {q.device}")
     _check(q, k, v, ONLINE_MAX_D)
-    out = _launch(_lib().minsdtf_flash_online, q, k, v, scale)
+    if q.dtype == torch.bfloat16:
+        k, scale = positive_scale(k, scale)
+        out = _launch_bf16(_launch_online, q, k, v, scale, online_bf16_width(q.shape[-1]))
+    else:
+        out = _launch_online(q, k, v, scale)
     online_attention.launches += 1
     return out
 

@@ -57,6 +57,21 @@ def _qkv(b, sq, sk, h, d, dtype, layout, device, seed=0):
     ("online", 1, 300, 1000, 1, 512, torch.bfloat16, "contiguous"),
     ("online", 1, 70, 513, 2, 192, torch.float32, "heads_first"),
     ("online", 1, 256, 4100, 1, 40, torch.bfloat16, "heads_first"),
+    # K2 path A (d <= 160)
+    ("online", 1, 300, 9000, 2, 40, torch.bfloat16, "fused_qkv"),
+    ("online", 1, 1000, 5000, 2, 80, torch.bfloat16, "contiguous"),    # ragged q and KV tiles
+    ("online", 1, 1000, 5000, 2, 160, torch.bfloat16, "heads_first"),
+    ("online", 1, 300, 5000, 2, 36, torch.bfloat16, "contiguous"),     # zero-padded to 40
+    ("online", 1, 300, 5000, 2, 40, torch.bfloat16, "odd_stride"),     # copied to 16-byte rows
+    ("online", 1, 2048, 8192, 2, 40, torch.bfloat16, "adversarial"),
+    ("online", 1, 70, 40, 2, 80, torch.bfloat16, "contiguous"),        # one ragged KV tile
+    # K2 path B (d = 512)
+    ("online", 1, 1000, 1000, 1, 512, torch.bfloat16, "contiguous"),   # ragged q and KV tiles
+    ("online", 2, 256, 777, 2, 512, torch.bfloat16, "heads_first"),
+    ("online", 1, 300, 1000, 1, 192, torch.bfloat16, "contiguous"),    # zero-padded to 512
+    ("online", 1, 300, 600, 1, 512, torch.bfloat16, "odd_stride"),     # copied to 16-byte rows
+    ("online", 1, 2048, 2048, 1, 512, torch.bfloat16, "adversarial"),
+    ("online", 1, 70, 20, 1, 512, torch.bfloat16, "contiguous"),       # one ragged KV tile
 ])
 def test_kernel_matches_plain(cuda, kernel, b, sq, sk, h, d, dtype, layout):
     wrapper = getattr(tfa, f"{kernel}_attention")
@@ -91,9 +106,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tfa.onepass_attention(*wide, 0.1)
 
 
+@pytest.mark.parametrize("d", [40, 512])
+@pytest.mark.parametrize("sign", [-1, 0])
+def test_online_bf16_takes_any_scale(cuda, d, sign):
+    """K2's bf16 paths keep the running max on the unscaled scores; the wrapper
+    hands them a positive scale with the same scores (:func:`positive_scale`)."""
+    q, k, v = _qkv(1, 300, 1000, 2, d, torch.bfloat16, "contiguous", cuda)
+    scale = sign * d ** -0.5
+    before = tfa.online_attention.launches
+    got = tfa.online_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert tfa.online_attention.launches == before + 1
+    want = tfa.online_attention_plain(q, k, v, scale)
+    rtol, atol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
 @pytest.mark.parametrize("sq,sk,heads,d,causal,route", [
     (512, 512, 2, 40, False, "onepass"),
     (256, 512, 1, 512, False, "online"),
+    (256, 16384, 2, 40, False, "online"),   # the 1024px UNet level 0
     (512, 77, 2, 40, False, "plain"),
     (77, 77, 2, 64, True, "plain"),
 ])

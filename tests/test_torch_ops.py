@@ -136,6 +136,8 @@ def _qkv(b, sq, sk, h, d, seed):
     (1, 1024, 1024, 80, 2, "onepass"),
     (1, 256, 1024, 512, 1, "online"),    # online route: d > 160
     (1, 512, 4096, 40, 1, "online"),     # fp32 kv 4096: JAX's online route
+    (1, 256, 8192, 40, 1, "online"),     # long KV, as the 1024px UNet level 0
+    (1, 128, 4096, 512, 1, "online"),    # the VAE mid-block's width at 512px
 ])
 def test_kernel_plain_versions_match_pallas(b, sq, sk, d, h, route):
     """K1's and K2's plain versions against ``fa.flash_attention(interpret=True)``
@@ -159,21 +161,39 @@ def test_wrappers_use_plain_version_on_cpu():
     assert (tfa.onepass_attention.launches, tfa.online_attention.launches) == before
 
 
-@pytest.mark.parametrize("d,width", [(8, 40), (36, 40), (72, 80)])
-def test_onepass_pad_path(d, width):
-    """K1's bf16 kernel runs other head widths zero-padded to the next width it is
-    built for: the padded call, sliced, equals the unpadded one (plain version)."""
+@pytest.mark.parametrize("kernel,d,width", [
+    *(pytest.param("onepass", d, w, id=f"{d}-{w}") for d, w in ((8, 40), (36, 40), (72, 80))),
+    *(pytest.param("online", d, w, id=f"online-{d}-{w}")
+      for d, w in ((8, 40), (40, 40), (72, 80), (160, 160), (192, 512), (512, 512))),
+])
+def test_onepass_pad_path(kernel, d, width):
+    """The bf16 kernels, K1's first, run other head widths zero-padded to the next
+    width they are built for (K1: 40/80/160; K2: 40/80/160 on path A, 512 on path
+    B): the padded call, sliced, equals the unpadded one (plain version)."""
     q, k, v = (_t(a) for a in _qkv(2, 64, 96, 3, d, seed=d))
-    assert tfa.onepass_bf16_width(d) == width
+    assert getattr(tfa, f"{kernel}_bf16_width")(d) == width
     padded = [tfa.pad_head_dim(t, width) for t in (q, k, v)]
     for t, pt in zip((q, k, v), padded):
         assert pt.shape == (*t.shape[:-1], width) and pt.is_contiguous()
         assert torch.equal(pt[..., :d], t) and not pt[..., d:].any()
     scale = d ** -0.5
-    got = tfa.onepass_attention_plain(*padded, scale)
-    torch.testing.assert_close(got[..., :d], tfa.onepass_attention_plain(q, k, v, scale),
-                               rtol=1e-6, atol=1e-6)
+    plain = getattr(tfa, f"{kernel}_attention_plain")
+    got = plain(*padded, scale)
+    torch.testing.assert_close(got[..., :d], plain(q, k, v, scale), rtol=1e-6, atol=1e-6)
     assert not got[..., d:].any()
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 0.2])
+def test_positive_scale_keeps_the_scores(scale):
+    """K2's bf16 wrapper runs a scale <= 0 as a positive one on a negated or zeroed
+    k: the scores, and so the attention, are exactly those of the given scale."""
+    q, k, v = (_t(a) for a in _qkv(1, 64, 96, 2, 40, seed=3))
+    k2, scale2 = tfa.positive_scale(k, scale)
+    assert scale2 > 0
+    torch.testing.assert_close(tfa._scores(q, k2) * scale2, tfa._scores(q, k) * scale,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(tfa.online_attention_plain(q, k2, v, scale2),
+                               tfa.online_attention_plain(q, k, v, scale), rtol=0, atol=0)
 
 
 def _jax_route(sq, sk, d, causal):
