@@ -1,14 +1,17 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100): builds the CUDA kernels,
 holds each against its plain PyTorch version, times them, and drives the main path
-(SD1.5 txt2img, 512x512, 25 steps, CFG 7.5, bf16, full widths, random weights)
-and the 1024x1024 path, whose UNet level 0 (16384 tokens) runs on K2.
+(SD1.5 txt2img, 512x512, 25 steps, CFG 7.5, bf16, full widths, random weights),
+the 1024x1024 path, whose UNet level 0 (16384 tokens) runs on K2, and at 512x512
+img2img and inpaint (strength 0.8: 20 steps; the VAE encoder's attention on K2)
+and ControlNet txt2img (its self-attention on K1), on synthetic numpy inputs.
 
     python3 chip_smoke.py
 
-After the checks it profiles one more warm image at each size with
-``torch.profiler`` and prints the device time by kernel group and the device's
-busy share (the full tables by kernel go to ``chiprun_out/chip_smoke/profile.txt``
-and ``profile_1024.txt``).
+After the checks it profiles one more warm image with ``torch.profiler`` at each
+size, with the ControlNet and of img2img, and prints the device time by kernel
+group and the device's busy share (the full tables by kernel go to
+``chiprun_out/chip_smoke/profile.txt``, ``profile_1024.txt``,
+``profile_controlnet.txt`` and ``profile_img2img.txt``).
 
 Exits non-zero on any failure, when no card is visible, or when the port's package
 is not beside this file. The last line of standard output is
@@ -33,6 +36,7 @@ import tempfile
 import time
 import zlib
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -69,6 +73,7 @@ MERGES = ["h e", "l l", "he ll", "o</w> w", "hell o</w>", "w o", "wo r", "wor l"
 PROMPT = "a photo of an astronaut riding a horse"
 WARM_IMAGES = 5
 WARM_IMAGES_1024 = 3
+WARM_IMAGES_NEW = 3  # img2img, inpaint and ControlNet (phases 5c-5e)
 # Phase 3: kernel, B, Sq, Sk, H, D, dtype, layout; the first of each kernel is the
 # main path's.
 bf16, f32 = torch.bfloat16, torch.float32
@@ -383,39 +388,36 @@ def phase_time(gen):
     return timings
 
 
-def phase_txt2img(bpe, size, warm_images, expect, label):
-    """size x size, 25 steps, CFG 7.5, bf16 txt2img at full SD1.5 widths,
-    ``warm_images`` times after a cold run; the launch counts are zeroed just
-    before the first warm image and read just after it, and must equal
-    ``expect``."""
-    from minsdtf_tpu_torch import StableDiffusion
+def run_phase(label, generate, size, warm_images, expect, check=None):
+    """``generate(return_latent=...)`` once cold, then ``warm_images`` times warm;
+    the launch counts are zeroed just before the first warm image and read just
+    after it, and must equal ``expect``. ``check(image)`` adds named checks.
+    Returns (passed, launches, warm seconds, peak GB)."""
     from minsdtf_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    pipe = StableDiffusion(size, size, bpe_path=bpe)
-    pipe.text_to_image(PROMPT, num_steps=25, unconditional_guidance_scale=7.5, seed=1234)
+    generate()
     torch.cuda.synchronize()
-    log(f"{label} cold run (weights init + first image): {time.perf_counter() - t0:.3f} s")
+    log(f"{label} cold run: {time.perf_counter() - t0:.3f} s")
 
     fa.onepass_attention.launches = 0
     fa.online_attention.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
-    image, latent = pipe.text_to_image(PROMPT, num_steps=25, unconditional_guidance_scale=7.5,
-                                       seed=1234, return_latent=True)
+    image, latent = generate(return_latent=True)
     torch.cuda.synchronize()
     samples = [time.perf_counter() - t0]
     launches = {"onepass": fa.onepass_attention.launches, "online": fa.online_attention.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for _ in range(warm_images - 1):
         t0 = time.perf_counter()
-        pipe.text_to_image(PROMPT, num_steps=25, unconditional_guidance_scale=7.5, seed=1234)
+        generate()
         torch.cuda.synchronize()
         samples.append(time.perf_counter() - t0)
-    s_per_img = statistics.median(samples)
-    log(f"{label} warm txt2img {size}x{size} 25 steps CFG 7.5 bf16: median {s_per_img:.4f} s/img "
-        f"of {len(samples)} images {[round(t, 4) for t in samples]}, peak memory {peak_gb:.3f} GB, "
-        f"launches in the first {launches}")
+    log(f"{label} warm {size}x{size}: median {statistics.median(samples):.4f} s/img of "
+        f"{len(samples)} images {[round(t, 4) for t in samples]}, peak memory {peak_gb:.3f} GB "
+        f"({resident_gb:.3f} GB allocated before it), launches in the first {launches}")
     checks = {
         f"image (1, {size}, {size}, 3) uint8": image.shape == (1, size, size, 3)
         and str(image.dtype) == "uint8",
@@ -423,9 +425,84 @@ def phase_txt2img(bpe, size, warm_images, expect, label):
         "image not constant": int(image.max()) > int(image.min()),
         f"K1 launches == {expect['onepass']}": launches["onepass"] == expect["onepass"],
         f"K2 launches == {expect['online']}": launches["online"] == expect["online"],
+        **(check(image) if check else {}),
     }
     log(f"{label} checks: {checks}")
-    return all(checks.values()), launches, samples, peak_gb, pipe
+    return all(checks.values()), launches, samples, peak_gb
+
+
+def txt2img(pipe):
+    """The 25-step CFG 7.5 txt2img call that the text-to-image phases time."""
+    return lambda **kw: pipe.text_to_image(PROMPT, num_steps=25, unconditional_guidance_scale=7.5,
+                                           seed=1234, **kw)
+
+
+def phase_txt2img(bpe, size, warm_images, expect, label):
+    """size x size, 25 steps, CFG 7.5, bf16 txt2img at full SD1.5 widths (the cold
+    run includes the weights' init). Returns :func:`run_phase`'s results and the
+    pipeline."""
+    from minsdtf_tpu_torch import StableDiffusion
+
+    pipe = StableDiffusion(size, size, bpe_path=bpe)
+    return (*run_phase(label, txt2img(pipe), size, warm_images, expect), pipe)
+
+
+def synthetic_inputs(size: int, seed: int = 5):
+    """uint8 numpy inputs made from ``seed``: a reference image (colour gradients
+    plus noise), a disc mask (255 inside) and an edge map like a canny output (a
+    ring and a diagonal, white on black, 3 channels)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size] / size
+    base = np.stack([yy, xx, 1.0 - (yy + xx) / 2], axis=-1) * 200.0
+    reference = (base + rng.uniform(0, 55, (size, size, 3))).astype(np.uint8)
+    radius = np.hypot(yy - 0.5, xx - 0.5)
+    mask = np.where(radius < 0.25, 255, 0).astype(np.uint8)
+    edges = (np.abs(radius - 0.3) < 1.5 / size) | (np.abs(yy - xx) < 1.0 / size)
+    edges = np.repeat(np.where(edges, 255, 0).astype(np.uint8)[..., None], 3, axis=-1)
+    return reference, mask, edges
+
+
+def phase_new_paths(pipe, size: int):
+    """img2img (5c), inpaint (5d) and ControlNet txt2img (5e) on ``pipe``'s weights,
+    25 steps, CFG 7.5, bf16, strength 0.8 (20 steps), mask blur 5; the ControlNet
+    is made from seed 3. Returns {path: run_phase results + (the generate call,)},
+    or None if a phase failed."""
+    from minsdtf_tpu_torch import imaging
+    from minsdtf_tpu_torch.models import controlnet as controlnet_lib
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.models.common import cast_weights_
+
+    reference, mask, edges = synthetic_inputs(size)
+    keep = imaging.preprocess_mask(mask, size, size, 5)[0][0, ..., 0] == 0
+
+    def unmasked_pixels_kept(image):
+        diff = np.abs(image[0].astype(int) - reference.astype(int))[keep]
+        log(f"phase 5d: {keep.sum()} pixels outside the mask, max |image - reference| "
+            f"{diff.max()} there")
+        return {"pixels outside the mask within 1 of the reference": int(diff.max()) <= 1}
+
+    common = dict(num_steps=25, unconditional_guidance_scale=7.5, seed=1234)
+    runs = [
+        ("img2img", "phase 5c img2img", lambda **kw: pipe.image_to_image(
+            PROMPT, reference_image=reference, reference_image_strength=0.8, **common, **kw),
+         {"onepass": 200, "online": 2}, None),
+        ("inpaint", "phase 5d inpaint", lambda **kw: pipe.inpaint(
+            PROMPT, reference_image=reference, reference_image_strength=0.8, inpaint_mask=mask,
+            mask_blur_strength=5, **common, **kw), {"onepass": 200, "online": 2},
+         unmasked_pixels_kept),
+        ("controlnet", "phase 5e ControlNet txt2img", lambda **kw: pipe.text_to_image(
+            PROMPT, control_net_image=edges, **common, **kw), {"onepass": 350, "online": 1}, None),
+    ]
+    results = {}
+    for path, label, generate, expect, check in runs:
+        if path == "controlnet":  # made here, so that the earlier peaks do not hold it
+            pipe._controlnet = cast_weights_(unet_lib.fuse_attention_projections(
+                controlnet_lib.init(pipe.device, seed=3)), pipe.compute_dtype).eval()
+        results[path] = (*run_phase(label, generate, size, WARM_IMAGES_NEW, expect, check),
+                         generate)
+        if not results[path][0]:
+            return None
+    return results
 
 
 def _kernel_group(name: str) -> str:
@@ -440,15 +517,16 @@ def _kernel_group(name: str) -> str:
     return "elementwise/other"
 
 
-def phase_profile(pipe, s_per_img: float, label: str, filename: str):
-    """One more warm image under torch.profiler: device time by kernel name and by
-    group, and the device's busy share of the unprofiled wall time."""
+def phase_profile(generate, s_per_img: float, label: str, filename: str):
+    """One more warm image, ``generate()``, under torch.profiler: device time by
+    kernel name and by group, and the device's busy share of the unprofiled wall
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.text_to_image(PROMPT, num_steps=25, unconditional_guidance_scale=7.5, seed=1234)
+        generate()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -505,11 +583,20 @@ def main() -> int:
         # 1024px: K1 at UNet levels 1 and 2, K2 at level 0 (125) and the VAE (1).
         ok, launches_1024, samples_1024, peak_gb_1024, pipe_1024 = phase_txt2img(
             bpe, 1024, WARM_IMAGES_1024, {"onepass": 250, "online": 126}, "phase 5b")
-        if not ok or not small_reference_check(bpe):
+        if not ok:
+            return 1
+        phase_profile(txt2img(pipe_1024), statistics.median(samples_1024), "phase 7b 1024px",
+                      "profile_1024.txt")
+        del pipe_1024  # the later phases' peak memory holds only the 512px pipeline
+        torch.cuda.empty_cache()
+        new_paths = phase_new_paths(pipe, 512)
+        if new_paths is None or not small_reference_check(bpe):
             return 1
     s_per_img = statistics.median(samples)
-    phase_profile(pipe, s_per_img, "phase 7", "profile.txt")
-    phase_profile(pipe_1024, statistics.median(samples_1024), "phase 7b 1024px", "profile_1024.txt")
+    phase_profile(txt2img(pipe), s_per_img, "phase 7", "profile.txt")
+    for path, label in (("controlnet", "phase 7c ControlNet"), ("img2img", "phase 7d img2img")):
+        _, _, warm, _, generate = new_paths[path]
+        phase_profile(generate, statistics.median(warm), label, f"profile_{path}.txt")
 
     rows = []
     for name, label, line in (("onepass", "flash_onepass (K1)", 153),
@@ -519,6 +606,7 @@ def main() -> int:
                      "source": "minsdtf_tpu_torch/csrc/flash_attention.cu",
                      "replaces": f"minsdtf_tpu/ops/flash_attention.py:{line}",
                      "launches": launches[name], "launches_1024px": launches_1024[name],
+                     **{f"launches_{path}": r[1][name] for path, r in new_paths.items()},
                      "max_abs_err": errors[name],
                      **{k: main_shape[k] for k in ("ms", "loop_ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms", "shape")},
@@ -527,6 +615,9 @@ def main() -> int:
         json.dump({"card": card, "kind": kind, "s_per_img": s_per_img, "s_per_img_samples": samples,
                    "peak_gb": peak_gb, "s_per_img_1024": statistics.median(samples_1024),
                    "s_per_img_1024_samples": samples_1024, "peak_gb_1024": peak_gb_1024,
+                   **{f"{key}_{path}": value for path, (_, _, warm, peak, _) in new_paths.items()
+                      for key, value in (("s_per_img", statistics.median(warm)),
+                                         ("s_per_img_samples", warm), ("peak_gb", peak))},
                    "kernels": rows}, f, indent=1)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
@@ -537,39 +628,61 @@ def main() -> int:
 
 
 def small_reference_check(bpe: str) -> bool:
-    """fp32 txt2img at 256x256 with small UNet / VAE widths: on the card it runs K1
-    (1024 tokens, d=40) and K2 (VAE d=192), on the CPU the plain versions; the
-    weights are the same. Latent within 1e-3, uint8 image within 1."""
+    """fp32 at 256x256 with small UNet / VAE / ControlNet widths, on the card and on
+    the CPU with the same weights: txt2img (phase 6), then img2img, inpaint and
+    ControlNet txt2img (phase 6b). On the card they run K1 (1024 tokens, d=40) and
+    K2 (the VAE's d=192), on the CPU the plain versions. Latent within 1e-3, uint8
+    image within 1."""
     from minsdtf_tpu_torch import StableDiffusion
     from minsdtf_tpu_torch.models import clip as clip_lib
+    from minsdtf_tpu_torch.models import controlnet as controlnet_lib
     from minsdtf_tpu_torch.models import unet as unet_lib
     from minsdtf_tpu_torch.models import vae as vae_lib
     from minsdtf_tpu_torch.ops import flash_attention as fa
 
+    small = dict(widths=(320, 64, 128, 128), temb_dim=128)
+    models = dict(
+        _unet=unet_lib.fuse_attention_projections(unet_lib.init("cpu", seed=0, **small)),
+        _decoder=vae_lib.init_decoder("cpu", seed=2, dec_widths=(192, 64, 32, 32)),
+        _encoder=vae_lib.init_encoder("cpu", seed=4, enc_widths=(32, 32, 64, 192)),
+        _text_model=clip_lib.init("cpu", seed=1),
+        _controlnet=unet_lib.fuse_attention_projections(
+            controlnet_lib.init("cpu", seed=3, **small)),
+    )
+    reference, mask, edges = synthetic_inputs(256)
+    common = dict(num_steps=3, seed=7, return_latent=True)
+    runs = {
+        "phase 6 txt2img": lambda pipe: pipe.text_to_image("hello world", **common),
+        "phase 6b img2img": lambda pipe: pipe.image_to_image(
+            "hello world", reference_image=reference, **common),
+        "phase 6b inpaint": lambda pipe: pipe.inpaint(
+            "hello world", reference_image=reference, inpaint_mask=mask, mask_blur_strength=5,
+            **common),
+        "phase 6b ControlNet txt2img": lambda pipe: pipe.text_to_image(
+            "hello world", control_net_image=edges, **common),
+    }
     results = {}
-    unet = unet_lib.fuse_attention_projections(
-        unet_lib.init("cpu", seed=0, widths=(320, 64, 128, 128), temb_dim=128))
-    dec = vae_lib.init_decoder("cpu", seed=2, dec_widths=(192, 64, 32, 32))
-    text = clip_lib.init("cpu", seed=1)
     for device in ("cuda", "cpu"):
         pipe = StableDiffusion(256, 256, bpe_path=bpe, compute_dtype=torch.float32,
                                device=device)
-        pipe._unet, pipe._decoder, pipe._text_model = (
-            m.to(device).eval() for m in (unet, dec, text))
-        before = fa.onepass_attention.launches + fa.online_attention.launches
-        results[device] = pipe.text_to_image("hello world", num_steps=3, seed=7,
-                                             return_latent=True)
-        results[device + "_launches"] = (fa.onepass_attention.launches
-                                         + fa.online_attention.launches - before)
-    (img_g, lat_g), (img_c, lat_c) = results["cuda"], results["cpu"]
-    lat_err = float(abs(lat_g - lat_c).max())
-    img_err = int(abs(img_g.astype(int) - img_c.astype(int)).max())
-    ok = (lat_err <= 1e-3 and img_err <= 1 and results["cuda_launches"] > 0
-          and results["cpu_launches"] == 0)
-    log(f"phase 6 small fp32 txt2img, card vs CPU: latent max_abs_err {lat_err:.3e} (tol 1e-3), "
-        f"image max |diff| {img_err} (tol 1), kernel launches {results['cuda_launches']} "
-        f"{'ok' if ok else 'FAIL'}")
-    return ok
+        for name, model in models.items():
+            setattr(pipe, name, model.to(device).eval())
+        for label, run in runs.items():
+            before = fa.onepass_attention.launches + fa.online_attention.launches
+            out = run(pipe)
+            results[label, device] = out, (fa.onepass_attention.launches
+                                           + fa.online_attention.launches - before)
+    all_ok = True
+    for label in runs:
+        ((img_g, lat_g), n_g), ((img_c, lat_c), n_c) = results[label, "cuda"], results[label, "cpu"]
+        lat_err = float(abs(lat_g - lat_c).max())
+        img_err = int(abs(img_g.astype(int) - img_c.astype(int)).max())
+        ok = lat_err <= 1e-3 and img_err <= 1 and n_g > 0 and n_c == 0
+        all_ok &= ok
+        log(f"{label} small fp32, card vs CPU: latent max_abs_err {lat_err:.3e} (tol 1e-3), "
+            f"image max |diff| {img_err} (tol 1), kernel launches {n_g} on the card, {n_c} on "
+            f"the CPU {'ok' if ok else 'FAIL'}")
+    return all_ok
 
 
 if __name__ == "__main__":

@@ -8,14 +8,16 @@ everywhere; one TransformerBlock per attention (self-attn, cross-attn against th
 768-d context, GEGLU-tanh FF x4).
 
 ``forward`` takes and returns the JAX package's layouts (NHWC latents, (B, S, C)
-context) and runs NCHW inside. The CFG cond/uncond pair arrives batched.
+context) and runs NCHW inside. The CFG cond/uncond pair arrives batched. The down
+path and mid block are built and run by functions that
+:mod:`minsdtf_tpu_torch.models.controlnet` shares.
 ``state_dict`` keys are the JAX package's flat module names plus ``.weight`` /
 ``.bias`` (``down_blocks.0.resnets.0.conv1.weight``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -156,29 +158,64 @@ class _Level(nn.Module):
             setattr(self, "upsamplers" if up else "downsamplers", nn.ModuleList([sampler]))
 
 
+def time_embedding_module(w0: int, temb_dim: int) -> nn.Module:
+    """``linear_1`` (w0 -> temb_dim) and ``linear_2``, as :func:`embed_time` reads them."""
+    te = nn.Module()
+    te.linear_1 = nn.Linear(w0, temb_dim)
+    te.linear_2 = nn.Linear(temb_dim, temb_dim)
+    return te
+
+
+def embed_time(te: nn.Module, t_emb: torch.Tensor) -> torch.Tensor:
+    """(B, 320) -> Dense -> SiLU -> Dense -> SiLU -> (B, temb_dim)."""
+    return silu(apply_dense(te.linear_2, silu(apply_dense(te.linear_1, t_emb))))
+
+
+def down_and_mid_blocks(widths, temb_dim: int, context_dim: int):
+    """The down path (three levels of [ResBlock + SpatialTransformer] x2 + a
+    stride-2 downsample, then 2 ResBlocks) and the mid Res-Attn-Res: the part of
+    the UNet that the ControlNet copies."""
+    w0, w1, w2, w3 = widths
+    down = []
+    for level in range(3):
+        cin = widths[level - 1] if level > 0 else w0
+        c = widths[level]
+        down.append(_Level(
+            [ResBlock(cin, c, temb_dim), ResBlock(c, c, temb_dim)],
+            [SpatialTransformer(c, context_dim) for _ in range(2)],
+            _Sampler(c)))
+    down.append(_Level([ResBlock(w2, w3, temb_dim), ResBlock(w3, w3, temb_dim)]))
+    mid = _Level([ResBlock(w3, w3, temb_dim), ResBlock(w3, w3, temb_dim)],
+                 [SpatialTransformer(w3, context_dim)])
+    return nn.ModuleList(down), mid
+
+
+def run_down_and_mid(down_blocks, mid_block, x, temb, context):
+    """The down path and the mid block on ``x`` (NCHW, after ``conv_in``). Returns
+    the mid block's output and the 12 skips: ``x`` itself, then every down
+    ResBlock / SpatialTransformer pair's and downsampler's output."""
+    skips = [x]
+    for level in down_blocks[:3]:
+        for res, attn in zip(level.resnets, level.attentions):
+            x = attn(res(x, temb), context)
+            skips.append(x)
+        x = apply_conv(level.downsamplers[0].conv, x, stride=2, padding=1)
+        skips.append(x)
+    for res in down_blocks[3].resnets:
+        x = res(x, temb)
+        skips.append(x)
+    x = mid_block.resnets[1](mid_block.attentions[0](mid_block.resnets[0](x, temb), context), temb)
+    return x, skips
+
+
 class UNet(nn.Module):
     def __init__(self, widths=BLOCK_WIDTHS, temb_dim: int = 1280,
                  context_dim: int = CONTEXT_DIM):
         super().__init__()
         w0, w1, w2, w3 = widths
-        self.time_embedding = nn.Module()
-        self.time_embedding.linear_1 = nn.Linear(w0, temb_dim)
-        self.time_embedding.linear_2 = nn.Linear(temb_dim, temb_dim)
+        self.time_embedding = time_embedding_module(w0, temb_dim)
         self.conv_in = nn.Conv2d(4, w0, 3)
-
-        down = []
-        for level in range(3):
-            cin = widths[level - 1] if level > 0 else w0
-            c = widths[level]
-            down.append(_Level(
-                [ResBlock(cin, c, temb_dim), ResBlock(c, c, temb_dim)],
-                [SpatialTransformer(c, context_dim) for _ in range(2)],
-                _Sampler(c)))
-        down.append(_Level([ResBlock(w2, w3, temb_dim), ResBlock(w3, w3, temb_dim)]))
-        self.down_blocks = nn.ModuleList(down)
-
-        self.mid_block = _Level([ResBlock(w3, w3, temb_dim), ResBlock(w3, w3, temb_dim)],
-                                [SpatialTransformer(w3, context_dim)])
+        self.down_blocks, self.mid_block = down_and_mid_blocks(widths, temb_dim, context_dim)
 
         # up path input channels: x concat skip; the skip channels mirror the
         # down path's stack of outputs
@@ -198,26 +235,17 @@ class UNet(nn.Module):
         self.conv_norm_out = norm(w0)
         self.conv_out = nn.Conv2d(w0, 4, 3)
 
-    def forward(self, latent: torch.Tensor, t_emb: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
-        """(B, h, w, 4), (B, 320), (B, S, 768) -> (B, h, w, 4)."""
-        te = self.time_embedding
-        temb = silu(apply_dense(te.linear_2, silu(apply_dense(te.linear_1, t_emb))))
-
+    def forward(self, latent: torch.Tensor, t_emb: torch.Tensor, context: torch.Tensor,
+                controls: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """(B, h, w, 4), (B, 320), (B, S, 768) -> (B, h, w, 4). ``controls``: the
+        ControlNet's 13 residuals, NCHW (:class:`models.controlnet.ControlNet`),
+        added to the 12 skips and the mid block's output."""
+        temb = embed_time(self.time_embedding, t_emb)
         x = apply_conv(self.conv_in, latent.permute(0, 3, 1, 2), padding=1)
-        skips = [x]
-        for level in self.down_blocks[:3]:
-            for res, attn in zip(level.resnets, level.attentions):
-                x = attn(res(x, temb), context)
-                skips.append(x)
-            x = apply_conv(level.downsamplers[0].conv, x, stride=2, padding=1)
-            skips.append(x)
-        for res in self.down_blocks[3].resnets:
-            x = res(x, temb)
-            skips.append(x)
-
-        mid = self.mid_block
-        x = mid.resnets[1](mid.attentions[0](mid.resnets[0](x, temb), context), temb)
+        x, skips = run_down_and_mid(self.down_blocks, self.mid_block, x, temb, context)
+        if controls is not None:
+            x = x + controls[12].to(x.dtype)
+            skips = [s + c.to(s.dtype) for s, c in zip(skips, controls[:12])]
 
         for i, level in enumerate(self.up_blocks):
             for j, res in enumerate(level.resnets):
@@ -232,16 +260,17 @@ class UNet(nn.Module):
         return apply_conv(self.conv_out, x, padding=1).permute(0, 2, 3, 1)
 
 
-def fuse_attention_projections(unet: UNet) -> UNet:
-    """Fuse every attn1 q/k/v into ``to_qkv`` and every attn2 k/v into ``to_kv``,
-    in place: one wide product in place of three (two) on the same input."""
-    for m in unet.modules():
+def fuse_attention_projections(model: nn.Module) -> nn.Module:
+    """Fuse every attn1 q/k/v into ``to_qkv`` and every attn2 k/v into ``to_kv``
+    of ``model`` (a UNet or a ControlNet), in place: one wide product in place of
+    three (two) on the same input."""
+    for m in model.modules():
         if isinstance(m, TransformerBlock):
             if hasattr(m.attn1, "to_q") and hasattr(m.attn1, "to_k"):
                 m.attn1.fuse(self_attention=True)
             if hasattr(m.attn2, "to_k"):
                 m.attn2.fuse(self_attention=False)
-    return unet
+    return model
 
 
 def param_specs(widths=BLOCK_WIDTHS, temb_dim: int = 1280,

@@ -1,13 +1,19 @@
-"""VAE decoder (sd-vae-ft-mse architecture) as an ``nn.Module``.
+"""VAE encoder and decoder (sd-vae-ft-mse architecture) as ``nn.Module`` classes.
 
-1/0.18215 rescale -> 1x1 post-quant conv -> conv 512 -> mid Res-Attn-Res -> 3x (3
-ResBlocks + nearest-2x upsample conv) at 512/512/256 -> 3 ResBlocks at 128 ->
-GN+SiLU -> conv 3. The VAE ResBlock has no time embedding; its attention block is
-single-head over h*w tokens scaled by 1/sqrt(C).
+Encoder: conv 128 -> 4 levels of 2 ResBlocks at 128/256/512/512, each of the
+first three followed by a stride-2 conv with the asymmetric ``((0, 1), (0, 1))``
+pad -> mid Res-Attn-Res -> GN+SiLU -> conv 8 -> 1x1 quant conv -> the mean half
+times 0.18215 (no sampling).
 
-``forward`` takes NHWC latents and returns NHWC images in [-1, 1]. ``state_dict``
-keys are diffusers-style (``decoder.up_blocks.{i}.*`` in decoder order,
-``post_quant_conv``). The encoder comes with img2img.
+Decoder: 1/0.18215 rescale -> 1x1 post-quant conv -> conv 512 -> mid
+Res-Attn-Res -> 3x (3 ResBlocks + nearest-2x upsample conv) at 512/512/256 -> 3
+ResBlocks at 128 -> GN+SiLU -> conv 3. The VAE ResBlock has no time embedding; its
+attention block is single-head over h*w tokens scaled by 1/sqrt(C).
+
+The encoder takes NHWC images in [-1, 1] and returns NHWC latents; the decoder
+the other way round. ``state_dict`` keys are diffusers-style
+(``encoder.down_blocks.{i}.*`` and ``quant_conv``; ``decoder.up_blocks.{i}.*`` in
+decoder order and ``post_quant_conv``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from minsdtf_tpu_torch.ops.attention import single_head_spatial_attention
 from minsdtf_tpu_torch.ops.basic import group_norm, group_norm_silu, upsample2x_conv3x3
 
 SCALE_FACTOR = 0.18215
+ENC_WIDTHS = (128, 256, 512, 512)
 DEC_WIDTHS = (512, 512, 256, 128)
 
 
@@ -74,18 +81,54 @@ class _MidBlock(nn.Module):
         return self.resnets[1](self.attentions[0](self.resnets[0](x)))
 
 
-class _UpSampler(nn.Module):
+class _Sampler(nn.Module):
+    """Holds the ``.conv`` of a down- or upsampler."""
+
     def __init__(self, c: int):
         super().__init__()
         self.conv = nn.Conv2d(c, c, 3)
 
 
-class _UpBlock(nn.Module):
-    def __init__(self, cin: int, c: int, upsample: bool):
+class _Block(nn.Module):
+    def __init__(self, cin: int, c: int, depth: int, sampler: str = ""):
         super().__init__()
-        self.resnets = nn.ModuleList([VAEResBlock(cin if j == 0 else c, c) for j in range(3)])
-        if upsample:
-            self.upsamplers = nn.ModuleList([_UpSampler(c)])
+        self.resnets = nn.ModuleList([VAEResBlock(cin if j == 0 else c, c) for j in range(depth)])
+        if sampler:
+            setattr(self, sampler, nn.ModuleList([_Sampler(c)]))
+
+
+class Encoder(nn.Module):
+    def __init__(self, widths):
+        super().__init__()
+        self.conv_in = nn.Conv2d(3, widths[0], 3)
+        cins = (widths[0],) + tuple(widths[:-1])
+        self.down_blocks = nn.ModuleList(
+            [_Block(cin, c, 2, "downsamplers" if level < 3 else "")
+             for level, (cin, c) in enumerate(zip(cins, widths))])
+        self.mid_block = _MidBlock(widths[-1])
+        self.conv_norm_out = norm(widths[-1])
+        self.conv_out = nn.Conv2d(widths[-1], 8, 3)
+
+
+class VAEEncoder(nn.Module):
+    def __init__(self, enc_widths=ENC_WIDTHS):
+        super().__init__()
+        self.encoder = Encoder(enc_widths)
+        self.quant_conv = nn.Conv2d(8, 8, 1)
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        """image (B, H, W, 3) in [-1, 1] -> latent (B, H/8, W/8, 4), mean * 0.18215."""
+        e = self.encoder
+        x = apply_conv(e.conv_in, image.permute(0, 3, 1, 2), padding=1)
+        for level, block in enumerate(e.down_blocks):
+            for res in block.resnets:
+                x = res(x)
+            if level < 3:
+                x = apply_conv(block.downsamplers[0].conv, x, stride=2, padding=((0, 1), (0, 1)))
+        x = e.mid_block(x)
+        x = group_norm_silu(x, e.conv_norm_out.weight, e.conv_norm_out.bias)
+        x = apply_conv(self.quant_conv, apply_conv(e.conv_out, x, padding=1))  # mean | logvar
+        return (x[:, :4] * SCALE_FACTOR).permute(0, 2, 3, 1)
 
 
 class Decoder(nn.Module):
@@ -95,7 +138,8 @@ class Decoder(nn.Module):
         self.mid_block = _MidBlock(widths[0])
         cins = (widths[0],) + tuple(widths[:-1])
         self.up_blocks = nn.ModuleList(
-            [_UpBlock(cin, c, level < 3) for level, (cin, c) in enumerate(zip(cins, widths))])
+            [_Block(cin, c, 3, "upsamplers" if level < 3 else "")
+             for level, (cin, c) in enumerate(zip(cins, widths))])
         self.conv_norm_out = norm(widths[-1])
         self.conv_out = nn.Conv2d(widths[-1], 3, 3)
 
@@ -119,6 +163,15 @@ class VAEDecoder(nn.Module):
                 x = upsample2x_conv3x3(x, up.weight, up.bias)
         x = group_norm_silu(x, d.conv_norm_out.weight, d.conv_norm_out.bias)
         return apply_conv(d.conv_out, x, padding=1).permute(0, 2, 3, 1)
+
+
+def encoder_param_specs(enc_widths=ENC_WIDTHS) -> Dict[str, Tuple[int, ...]]:
+    return param_shapes(lambda: VAEEncoder(enc_widths))
+
+
+def init_encoder(device, seed: int = 4, **kw) -> VAEEncoder:
+    """Random-initialized encoder on ``device`` (see :func:`models.common.build`)."""
+    return build(lambda: VAEEncoder(**kw), device, seed)
 
 
 def decoder_param_specs(dec_widths=DEC_WIDTHS) -> Dict[str, Tuple[int, ...]]:

@@ -1,14 +1,20 @@
-"""The public StableDiffusion pipeline: txt2img with DDIM and classifier-free
-guidance, on the card.
+"""The public StableDiffusion pipeline: txt2img, img2img, inpaint and ControlNet
+with DDIM and classifier-free guidance, on the card.
 
 ``StableDiffusion(...).text_to_image(prompt, ...)`` tokenizes and parses the prompt
 on the host, encodes it with the CLIP text stack (the unconditional row rides in
 the first encode and is cached), draws the initial noise with the TF-Philox
 generator (the same seed gives the same noise as the JAX package and the
 reference), runs the step loop (:mod:`minsdtf_tpu_torch.sampler`) and decodes.
+``image_to_image`` encodes the reference image with the VAE encoder and starts
+from it noised to the truncated schedule's first t; ``inpaint`` also blends the
+reference back outside the mask, in the latent each step and in the image at the
+end. ``control_net_image`` runs the ControlNet before each UNet call. Images and
+masks are numpy arrays (a path string needs PIL).
 
 No checkpoint loading yet: the weights are random, made on the target device from
-fixed seeds. ``compute_dtype`` is bf16 on CUDA unless fp32 is asked for.
+fixed seeds, and a ControlNet must be assigned to ``_controlnet``.
+``compute_dtype`` is bf16 on CUDA unless fp32 is asked for.
 """
 
 from __future__ import annotations
@@ -18,10 +24,12 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from minsdtf_tpu_torch import imaging
 from minsdtf_tpu_torch import rng as rng_lib
 from minsdtf_tpu_torch import sampler
 from minsdtf_tpu_torch import scheduler as sched_lib
 from minsdtf_tpu_torch.models import clip as clip_lib
+from minsdtf_tpu_torch.models import controlnet as controlnet_lib
 from minsdtf_tpu_torch.models import unet as unet_lib
 from minsdtf_tpu_torch.models import vae as vae_lib
 from minsdtf_tpu_torch.models.common import cast_weights_
@@ -41,7 +49,8 @@ def resolve_device(device) -> torch.device:
 
 
 class StableDiffusion:
-    """Stable Diffusion 1.5 txt2img (DDIM-like scheduler, CFG) in PyTorch."""
+    """Stable Diffusion 1.5 txt2img / img2img / inpaint / ControlNet (DDIM-like
+    scheduler, CFG) in PyTorch."""
 
     def __init__(
         self,
@@ -51,6 +60,7 @@ class StableDiffusion:
         bpe_path: Optional[str] = None,
         compute_dtype: Optional[torch.dtype] = None,
         device=None,
+        controlnet_path: Optional[str] = None,
     ):
         self.img_height = int(img_height)
         self.img_width = int(img_width)
@@ -60,6 +70,9 @@ class StableDiffusion:
                     f"{name}={v} is not a positive multiple of 64; the UNet's "
                     "downsampling stack requires image sides divisible by 64")
         self.clip_skip = int(clip_skip)
+        if controlnet_path is not None:
+            raise NotImplementedError("checkpoint loading is not ported yet; assign a "
+                                      "ControlNet module to `_controlnet`")
         self.device = resolve_device(device)
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
@@ -69,6 +82,8 @@ class StableDiffusion:
         self._unet = None
         self._text_model = None
         self._decoder = None
+        self._encoder = None
+        self._controlnet = None
         self._tokenizer = None
         self._uncond = None
 
@@ -94,6 +109,19 @@ class StableDiffusion:
             model = vae_lib.init_decoder(self.device, seed=2)
             self._decoder = cast_weights_(model, self.compute_dtype).eval()
         return self._decoder
+
+    @property
+    def encoder(self) -> vae_lib.VAEEncoder:
+        if self._encoder is None:
+            model = vae_lib.init_encoder(self.device, seed=4)
+            self._encoder = cast_weights_(model, self.compute_dtype).eval()
+        return self._encoder
+
+    @property
+    def controlnet(self) -> Optional[controlnet_lib.ControlNet]:
+        """The ControlNet assigned to ``_controlnet``, or None: without checkpoint
+        loading there is none by default."""
+        return self._controlnet
 
     @property
     def tokenizer(self) -> ClipTokenizer:
@@ -157,20 +185,102 @@ class StableDiffusion:
         batch_size=1,
         num_steps=50,
         unconditional_guidance_scale=7.5,
+        embedding=None,
+        negative_embedding=None,
         seed=None,
+        control_net_image=None,
         guidance_rescale=0.7,
+        callback=None,
         return_latent=False,
     ):
         return self.generate_image(
-            self._encode_text_dev(prompt),
+            self._encode_prompt(prompt, embedding),
             negative_prompt=negative_prompt,
             batch_size=batch_size,
             num_steps=num_steps,
             unconditional_guidance_scale=unconditional_guidance_scale,
             seed=seed,
+            negative_embedding=negative_embedding,
+            control_net_image=control_net_image,
             guidance_rescale=guidance_rescale,
+            callback=callback,
             return_latent=return_latent,
         )
+
+    def image_to_image(
+        self,
+        prompt,
+        negative_prompt=None,
+        batch_size=1,
+        num_steps=50,
+        unconditional_guidance_scale=7.5,
+        embedding=None,
+        negative_embedding=None,
+        seed=None,
+        control_net_image=None,
+        reference_image=None,
+        reference_image_strength=0.8,
+        guidance_rescale=0.7,
+        callback=None,
+        return_latent=False,
+    ):
+        return self.generate_image(
+            self._encode_prompt(prompt, embedding),
+            negative_prompt=negative_prompt,
+            batch_size=batch_size,
+            num_steps=num_steps,
+            unconditional_guidance_scale=unconditional_guidance_scale,
+            seed=seed,
+            negative_embedding=negative_embedding,
+            control_net_image=control_net_image,
+            reference_image=reference_image,
+            reference_image_strength=reference_image_strength,
+            guidance_rescale=guidance_rescale,
+            callback=callback,
+            return_latent=return_latent,
+        )
+
+    def inpaint(
+        self,
+        prompt,
+        negative_prompt=None,
+        batch_size=1,
+        num_steps=50,
+        unconditional_guidance_scale=7.5,
+        embedding=None,
+        negative_embedding=None,
+        seed=None,
+        control_net_image=None,
+        reference_image=None,
+        reference_image_strength=0.8,
+        inpaint_mask=None,
+        mask_blur_strength=None,
+        guidance_rescale=0.7,
+        callback=None,
+        return_latent=False,
+    ):
+        return self.generate_image(
+            self._encode_prompt(prompt, embedding),
+            negative_prompt=negative_prompt,
+            batch_size=batch_size,
+            num_steps=num_steps,
+            unconditional_guidance_scale=unconditional_guidance_scale,
+            seed=seed,
+            negative_embedding=negative_embedding,
+            control_net_image=control_net_image,
+            reference_image=reference_image,
+            reference_image_strength=reference_image_strength,
+            inpaint_mask=inpaint_mask,
+            mask_blur_strength=mask_blur_strength,
+            guidance_rescale=guidance_rescale,
+            callback=callback,
+            return_latent=return_latent,
+        )
+
+    def _encode_prompt(self, prompt, embedding) -> torch.Tensor:
+        if embedding is not None:
+            raise NotImplementedError("textual inversion is not ported yet")
+        return self._encode_text_dev(prompt)
 
     def generate_image(
         self,
@@ -181,16 +291,29 @@ class StableDiffusion:
         unconditional_guidance_scale=7.5,
         diffusion_noise=None,
         seed=None,
+        negative_embedding=None,
+        control_net_image=None,
+        inpaint_mask=None,
+        mask_blur_strength=None,
+        reference_image=None,
+        reference_image_strength=0.8,
         guidance_rescale=0.0,
+        callback=None,
         eta=0.3,
         return_latent=False,
     ):
         """``encoded_text``: a (S, 768) or (B, S, 768) context (numpy or tensor).
+        img2img runs only when ``0 < reference_image_strength < 1``; the inpaint
+        blends only with img2img (an ``inpaint_mask`` alone gives txt2img).
         Returns the uint8 (B, H, W, 3) image as numpy, and the fp32 latent too when
         ``return_latent``."""
         if diffusion_noise is not None and seed is not None:
             raise ValueError("`diffusion_noise` and `seed` should not both be passed to "
                              "`generate_image`.")
+        if negative_embedding is not None:
+            raise NotImplementedError("textual inversion is not ported yet")
+        if control_net_image is not None and self.controlnet is None:
+            raise ValueError("`control_net_image` needs a ControlNet; none is loaded")
         h8, w8 = self.img_height // 8, self.img_width // 8
         context = torch.as_tensor(encoded_text, dtype=torch.float32, device=self.device)
         if context.dim() == 2:
@@ -208,16 +331,61 @@ class StableDiffusion:
             if seed is None:
                 seed = int(np.random.randint(0, 2**31 - 1))
             noise = rng_lib.stateless_normal((batch_size, h8, w8, 4), seed)
-        latent0 = torch.as_tensor(noise, device=self.device).to(self.compute_dtype)
 
-        schedule = sched_lib.build_denoise_schedule(self.scheduler, num_steps, eta=eta)
+        use_img2img = reference_image is not None and 0.0 < reference_image_strength < 1.0
+        strength = float(reference_image_strength) if use_img2img else None
+        schedule = sched_lib.build_denoise_schedule(self.scheduler, num_steps,
+                                                    strength=strength, eta=eta)
+        inpaint = None
+        if use_img2img:
+            image01, image_tensor = imaging.preprocess_image(
+                reference_image, self.img_height, self.img_width)
+            init_latent = self._encode_image(image_tensor)
+            # fp32 on the host, rounded as the JAX pipeline rounds it: the signal
+            # term in float64, the noise term in fp32
+            t0 = schedule.init_timestep
+            latent0 = ((self.scheduler.signal_rates[t0]
+                        * np.repeat(init_latent, batch_size, axis=0)).astype(np.float32)
+                       + np.float32(self.scheduler.noise_rates[t0]) * noise)
+            if inpaint_mask is not None:
+                pixel_mask, latent_mask = imaging.preprocess_mask(
+                    inpaint_mask, self.img_height, self.img_width, mask_blur_strength)
+                inpaint = sampler.Inpaint(*(
+                    torch.as_tensor(a, device=self.device)
+                    for a in (init_latent, noise, latent_mask, image01, pixel_mask)))
+        else:
+            latent0 = noise
+        latent0 = torch.as_tensor(latent0, device=self.device).to(self.compute_dtype)
+
+        hint = None
+        if control_net_image is not None:
+            arr = imaging.bilinear_resize(imaging.load_image(control_net_image, "RGB"),
+                                          self.img_height, self.img_width)
+            cn_img = np.tile((np.asarray(arr, np.float32) / 255.0)[None], (batch_size, 1, 1, 1))
+            hint = self._hint(cn_img)
+
         t_embs = torch.as_tensor(sched_lib.timestep_embedding(schedule.timesteps),
                                  device=self.device)
         rows = {k: getattr(schedule, k) for k in sched_lib.ROW_KEYS}
         image, latent = sampler.generate(
             self.unet, self.decoder, latent0, context, uncond, t_embs, rows,
-            float(unconditional_guidance_scale), float(guidance_rescale))
+            float(unconditional_guidance_scale), float(guidance_rescale),
+            controlnet=self.controlnet if hint is not None else None, hint=hint,
+            inpaint=inpaint, callback=callback)
         image = image.cpu().numpy()
         if return_latent:
             return image, latent.float().cpu().numpy()
         return image
+
+    @torch.inference_mode()
+    def _encode_image(self, image_tensor: np.ndarray) -> np.ndarray:
+        """(1, H, W, 3) in [-1, 1] -> the fp32 (1, H/8, W/8, 4) latent on the host;
+        the encoder runs in the compute dtype."""
+        x = torch.as_tensor(image_tensor, device=self.device).to(self.compute_dtype)
+        return self.encoder(x).float().cpu().numpy()
+
+    @torch.inference_mode()
+    def _hint(self, cn_img: np.ndarray) -> torch.Tensor:
+        """(B, H, W, 3) in [0, 1] -> the HintNet's (B, 320, H/8, W/8), compute dtype."""
+        x = torch.as_tensor(cn_img, device=self.device).to(self.compute_dtype)
+        return self.controlnet.controlnet_cond_embedding(x)

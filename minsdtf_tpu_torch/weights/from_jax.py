@@ -73,3 +73,12 @@ def from_jax(params: Mapping[str, Mapping[str, np.ndarray]],
         raise ValueError("from_jax: shape mismatch " + ", ".join(
             f"{k} {tuple(state[k].shape)} != {expected[k]}" for k in bad[:8]))
     return state
+
+
+def split_vae(params: Mapping[str, Mapping[str, np.ndarray]]):
+    """The JAX package's VAE dict (encoder and decoder in one) -> ``(encoder
+    params, decoder params)``: ``encoder.*`` and ``quant_conv`` for
+    :class:`models.vae.VAEEncoder`, the rest for :class:`models.vae.VAEDecoder`."""
+    encoder = {k: v for k, v in params.items() if k.startswith("encoder.") or k == "quant_conv"}
+    decoder = {k: v for k, v in params.items() if k not in encoder}
+    return encoder, decoder

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions, and
+the VAE encoder and ControlNet that run them on the img2img and ControlNet paths,
+against the same modules on the CPU.
 
 Every test here needs an NVIDIA card and ``nvcc`` (Hopper, ``sm_90a``) and skips
 where torch sees no CUDA device. The JAX package is not imported, so the file also
@@ -27,6 +29,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -143,3 +146,75 @@ def test_multi_head_attention_routes_on_the_card(cuda, sq, sk, heads, d, causal,
     want = tattn.plain_attention(*split, d ** -0.5, causal).flatten(2)
     rtol, atol = TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+# The bf16 encoder against fp32 on the card: bf16 keeps 8 significant bits, so
+# each of the encoder's ~30 layers rounds by up to 2**-9 relative; as independent
+# roundings these add to about sqrt(30) * 2**-9 = 1.1e-2 of the output's rms.
+# The bound allows about three times that.
+ENCODER_BF16_REL_RMS = 2.0 ** -5
+
+
+def _encoder_and_image(seed=0):
+    """The full-width encoder on the CPU, and a (1, 256, 256, 3) image in [-1, 1]."""
+    from minsdtf_tpu_torch.models import vae as tvae
+
+    encoder = tvae.init_encoder("cpu", seed=4).eval()
+    gen = torch.Generator().manual_seed(seed)
+    image = torch.rand(1, 256, 256, 3, generator=gen) * 2 - 1
+    return encoder, image
+
+
+def test_vae_encoder_on_the_card_matches_the_cpu(cuda):
+    """fp32 at full widths, 256x256: the mid block's (1, 1024, 1, 512) attention
+    runs on K2 on the card and on its plain version on the CPU."""
+    encoder, image = _encoder_and_image()
+    with torch.inference_mode():
+        want = encoder(image)
+        before = tfa.online_attention.launches
+        got = encoder.to(cuda)(image.to(cuda))
+        torch.cuda.synchronize()
+    assert tfa.online_attention.launches == before + 1
+    assert got.shape == want.shape == (1, 32, 32, 4)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_vae_encoder_bf16_is_within_its_bound_of_fp32(cuda):
+    from minsdtf_tpu_torch.models.common import cast_weights_
+
+    encoder, image = _encoder_and_image(seed=1)
+    encoder, image = encoder.to(cuda), image.to(cuda)
+    with torch.inference_mode():
+        want = encoder(image)
+        got = cast_weights_(encoder, torch.bfloat16)(image.bfloat16()).float()
+    assert torch.isfinite(got).all()
+    rel_rms = ((got - want).square().mean() / want.square().mean()).sqrt().item()
+    assert rel_rms <= ENCODER_BF16_REL_RMS, rel_rms
+
+
+def test_controlnet_residuals_on_the_card_match_the_cpu(cuda):
+    """fp32 at small widths on a 32x32 latent: the level-0 self-attention (1024
+    tokens, d=40) runs on K1 on the card, twice a call."""
+    from minsdtf_tpu_torch.models import controlnet as tcontrolnet
+    from minsdtf_tpu_torch.models import unet as tunet
+
+    small = dict(widths=(320, 64, 128, 128), temb_dim=128)
+    model = tunet.fuse_attention_projections(tcontrolnet.init("cpu", seed=3, **small)).eval()
+    gen = torch.Generator().manual_seed(2)
+    latent = torch.randn(2, 32, 32, 4, generator=gen)
+    t_emb = torch.randn(2, 320, generator=gen)
+    context = torch.randn(2, 77, 768, generator=gen)
+    image = torch.rand(2, 256, 256, 3, generator=gen)
+    with torch.inference_mode():
+        want = model(latent, t_emb, context, model.controlnet_cond_embedding(image))
+        model = model.to(cuda)
+        before = tfa.onepass_attention.launches
+        got = model(latent.to(cuda), t_emb.to(cuda), context.to(cuda),
+                    model.controlnet_cond_embedding(image.to(cuda)))
+        torch.cuda.synchronize()
+    assert tfa.onepass_attention.launches == before + 2
+    assert len(got) == len(want) == 13
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4 * scale)

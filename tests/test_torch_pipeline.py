@@ -6,28 +6,15 @@ import os
 import subprocess
 import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from minsdtf_tpu.models import clip as jclip
-from minsdtf_tpu.models import unet as junet
-from minsdtf_tpu.models import vae as jvae
-from minsdtf_tpu.pipeline import StableDiffusion as JaxStableDiffusion
 from minsdtf_tpu_torch import StableDiffusion
-from minsdtf_tpu_torch.models import clip as tclip
-from minsdtf_tpu_torch.models import unet as tunet
-from minsdtf_tpu_torch.models import vae as tvae
-from torch_port_utils import load, perturb_norms, write_merges
+from torch_port_utils import assert_same_image, make_pipelines, write_merges
 
-LATENT_TOL = 1e-4
 PORT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "minsdtf_tpu_torch")
-# widths[0] must be 320: the pipeline feeds 320-wide timestep embeddings
-UNET = dict(widths=(320, 64, 128, 128), temb_dim=128)
-VAE_DEC = (64, 64, 32, 32)
 
 
 @pytest.fixture(scope="module")
@@ -38,27 +25,7 @@ def bpe_path(tmp_path_factory):
 @pytest.fixture(scope="module")
 def pipelines(bpe_path):
     """The JAX pipeline and the port's, fp32, holding the same small params."""
-    unet_p = junet.init_params(jax.random.PRNGKey(0), **UNET)
-    vae_p = jvae.init_params(jax.random.PRNGKey(2), enc_widths=(32, 32, 64, 64),
-                             dec_widths=VAE_DEC)
-    text_p = perturb_norms(jclip.init_params(jax.random.PRNGKey(1)), 3)
-
-    jpipe = JaxStableDiffusion(64, 64, compute_dtype=jnp.float32, bpe_path=bpe_path)
-    jpipe._unet_params, jpipe._vae_params, jpipe._text_params = unet_p, vae_p, text_p
-    pipe = StableDiffusion(64, 64, bpe_path=bpe_path, compute_dtype=torch.float32,
-                           device="cpu")
-    pipe._unet = load(tunet.fuse_attention_projections(tunet.UNet(**UNET)), unet_p)
-    pipe._decoder = load(tvae.VAEDecoder(VAE_DEC), {
-        k: v for k, v in vae_p.items() if not k.startswith("encoder.") and k != "quant_conv"})
-    pipe._text_model = load(tclip.CLIPTextModel(), text_p)
-    return jpipe, pipe
-
-
-def _assert_same_image(got, want):
-    (img, lat), (want_img, want_lat) = got, want
-    assert img.shape == want_img.shape == (1, 64, 64, 3) and img.dtype == np.uint8
-    np.testing.assert_allclose(lat, want_lat, rtol=LATENT_TOL, atol=LATENT_TOL)
-    assert np.abs(img.astype(int) - want_img.astype(int)).max() <= 1
+    return make_pipelines(bpe_path)
 
 
 def test_text_to_image_matches_jax_pipeline(pipelines):
@@ -68,7 +35,7 @@ def test_text_to_image_matches_jax_pipeline(pipelines):
         jpipe._encode_text_dev("hello world"), num_steps=3, seed=7,
         unconditional_guidance_scale=7.5, guidance_rescale=0.7, return_latent=True)
     got = pipe.text_to_image("hello world", num_steps=3, seed=7, return_latent=True)
-    _assert_same_image(got, want)
+    assert_same_image(got, want)
 
 
 def test_negative_prompt_and_given_noise_match_jax_pipeline(pipelines):
@@ -82,7 +49,7 @@ def test_negative_prompt_and_given_noise_match_jax_pipeline(pipelines):
               unconditional_guidance_scale=5.0, return_latent=True)
     want = jpipe.generate_image(jpipe.encode_text("hello world"), **kw)
     got = pipe.generate_image(pipe.encode_text("hello world"), **kw)
-    _assert_same_image(got, want)
+    assert_same_image(got, want)
 
 
 def test_import_leaves_out_jax_and_the_jax_package():

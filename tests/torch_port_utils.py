@@ -1,12 +1,33 @@
 """Helpers shared by the port's tests (``tests/test_torch_*.py``): a synthetic CLIP
-merges file, norm perturbation of JAX params, and JAX params loaded into a port
-module through ``weights.from_jax``."""
+merges file, norm perturbation of JAX params, JAX params loaded into a port
+module through ``weights.from_jax``, and the JAX and port pipelines on the same
+small params."""
 
 import gzip
 
+import jax
+import jax.numpy as jnp
 import numpy as np
+import torch
 
-from minsdtf_tpu_torch.weights.from_jax import from_jax
+from minsdtf_tpu.models import clip as jclip
+from minsdtf_tpu.models import controlnet as jcontrolnet
+from minsdtf_tpu.models import unet as junet
+from minsdtf_tpu.models import vae as jvae
+from minsdtf_tpu.pipeline import StableDiffusion as JaxStableDiffusion
+from minsdtf_tpu_torch import StableDiffusion
+from minsdtf_tpu_torch.models import clip as tclip
+from minsdtf_tpu_torch.models import controlnet as tcontrolnet
+from minsdtf_tpu_torch.models import unet as tunet
+from minsdtf_tpu_torch.models import vae as tvae
+from minsdtf_tpu_torch.weights.from_jax import from_jax, split_vae
+
+# the pipelines' small widths; the UNet's widths[0] must be 320, the width of the
+# timestep embeddings the pipeline feeds it
+UNET = dict(widths=(320, 64, 128, 128), temb_dim=128)
+VAE_ENC = (32, 32, 64, 64)
+VAE_DEC = (64, 64, 32, 32)
+LATENT_TOL = 1e-4
 
 # enough merges for the test prompts to form multi-character tokens
 MERGES = [
@@ -39,3 +60,65 @@ def load(module, params):
     """``module`` with the JAX ``params`` loaded, in eval mode."""
     module.load_state_dict(from_jax(params, module))
     return module.eval()
+
+
+def make_pipelines(bpe_path, size: int = 64, controlnet: bool = False):
+    """The JAX pipeline and the port's, fp32 on the CPU, ``size`` x ``size``,
+    holding the same small params (and a ControlNet at the UNet's widths when
+    ``controlnet``)."""
+    unet_p = junet.init_params(jax.random.PRNGKey(0), **UNET)
+    vae_p = jvae.init_params(jax.random.PRNGKey(2), enc_widths=VAE_ENC, dec_widths=VAE_DEC)
+    text_p = perturb_norms(jclip.init_params(jax.random.PRNGKey(1)), 3)
+
+    jpipe = JaxStableDiffusion(size, size, compute_dtype=jnp.float32, bpe_path=bpe_path)
+    jpipe._unet_params, jpipe._vae_params, jpipe._text_params = unet_p, vae_p, text_p
+    pipe = StableDiffusion(size, size, bpe_path=bpe_path, compute_dtype=torch.float32,
+                           device="cpu")
+    pipe._unet = load(tunet.fuse_attention_projections(tunet.UNet(**UNET)), unet_p)
+    enc_p, dec_p = split_vae(vae_p)
+    pipe._encoder = load(tvae.VAEEncoder(VAE_ENC), enc_p)
+    pipe._decoder = load(tvae.VAEDecoder(VAE_DEC), dec_p)
+    pipe._text_model = load(tclip.CLIPTextModel(), text_p)
+    if controlnet:
+        cn_p = perturb_norms(jcontrolnet.init_params(jax.random.PRNGKey(3), scale=0.04, **UNET), 4)
+        jpipe._controlnet_params = cn_p
+        pipe._controlnet = load(
+            tunet.fuse_attention_projections(tcontrolnet.ControlNet(**UNET)), cn_p)
+    return jpipe, pipe
+
+
+def assert_same_image(got, want, size: int = 64):
+    """``(image, latent)`` pairs: the same uint8 image shape, the latents within
+    ``LATENT_TOL`` and the images within 1."""
+    (img, lat), (want_img, want_lat) = got, want
+    assert img.shape == want_img.shape == (1, size, size, 3) and img.dtype == np.uint8
+    np.testing.assert_allclose(lat, want_lat, rtol=LATENT_TOL, atol=LATENT_TOL)
+    assert np.abs(img.astype(int) - want_img.astype(int)).max() <= 1
+
+
+def nchw(a) -> torch.Tensor:
+    """An NHWC numpy array as a contiguous NCHW tensor."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
+
+
+def edge_image(h: int, w: int) -> np.ndarray:
+    """An (h, w, 3) uint8 edge map like a canny output: a ring and a diagonal,
+    white on black."""
+    yy, xx = np.mgrid[:h, :w]
+    ring = np.abs(np.hypot(yy - h / 2, xx - w / 2) - min(h, w) / 3) < 1.5
+    edges = np.where(ring | (np.abs(yy - xx) < 1), 255, 0).astype(np.uint8)
+    return np.repeat(edges[..., None], 3, axis=-1)
+
+
+def reference_image(h: int, w: int, seed: int = 11) -> np.ndarray:
+    """An (h, w, 3) uint8 image: smooth colour gradients plus seeded noise."""
+    yy, xx = np.mgrid[:h, :w] / max(h, w)
+    base = np.stack([yy, xx, 1.0 - (yy + xx) / 2], axis=-1) * 200.0
+    noise = np.random.RandomState(seed).uniform(0, 55, (h, w, 3))
+    return (base + noise).astype(np.uint8)
+
+
+def disc_mask(h: int, w: int) -> np.ndarray:
+    """An (h, w) uint8 mask, 255 inside a disc about the centre and 0 outside."""
+    yy, xx = np.mgrid[:h, :w]
+    return np.where(np.hypot(yy - h / 2, xx - w / 2) < min(h, w) / 4, 255, 0).astype(np.uint8)
