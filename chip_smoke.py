@@ -3,15 +3,20 @@ holds each against its plain PyTorch version, times them, and drives the main pa
 (SD1.5 txt2img, 512x512, 25 steps, CFG 7.5, bf16, full widths, random weights),
 the 1024x1024 path, whose UNet level 0 (16384 tokens) runs on K2, and at 512x512
 img2img and inpaint (strength 0.8: 20 steps; the VAE encoder's attention on K2)
-and ControlNet txt2img (its self-attention on K1), on synthetic numpy inputs.
+and ControlNet txt2img (its self-attention on K1), on synthetic numpy inputs;
+then on the same 512x512 modules the other samplers: DPM++ 2M Karras (15 steps),
+Euler-a (25), TCD at batch 8 (4 steps; K1 at B = 16), LCM (4), and a 25-step
+txt2img with a textual-inversion embedding from a ``.safetensors`` file, a
+``.pt`` negative embedding and a two-chunk prompt, which takes two UNet calls a
+step (K1 at B = 1).
 
     python3 chip_smoke.py
 
 After the checks it profiles one more warm image with ``torch.profiler`` at each
-size, with the ControlNet and of img2img, and prints the device time by kernel
-group and the device's busy share (the full tables by kernel go to
-``chiprun_out/chip_smoke/profile.txt``, ``profile_1024.txt``,
-``profile_controlnet.txt`` and ``profile_img2img.txt``).
+size, with the ControlNet and of img2img, and one TCD batch of 8, and prints the
+device time by kernel group and the device's busy share (the full tables by
+kernel go to ``chiprun_out/chip_smoke/profile.txt``, ``profile_1024.txt``,
+``profile_controlnet.txt``, ``profile_img2img.txt`` and ``profile_tcd_b8.txt``).
 
 Exits non-zero on any failure, when no card is visible, or when the port's package
 is not beside this file. The last line of standard output is
@@ -74,6 +79,7 @@ PROMPT = "a photo of an astronaut riding a horse"
 WARM_IMAGES = 5
 WARM_IMAGES_1024 = 3
 WARM_IMAGES_NEW = 3  # img2img, inpaint and ControlNet (phases 5c-5e)
+WARM_IMAGES_SAMPLERS = 2  # the other samplers and textual inversion (phases 5f-5j)
 # Phase 3: kernel, B, Sq, Sk, H, D, dtype, layout; the first of each kernel is the
 # main path's.
 bf16, f32 = torch.bfloat16, torch.float32
@@ -107,6 +113,17 @@ CASES = [
     ("online", 1, 1000, 5000, 2, 36, bf16, "contiguous"),    # zero-padded to 40
     ("online", 1, 1000, 5000, 2, 40, bf16, "odd_stride"),    # copied to 16-byte rows
 ]
+# The shapes that batch 8 (TCD) and the two-call CFG path (one UNet call per
+# context) give the kernels; the on-card tests run them too.
+BATCH_CASES = [
+    ("onepass", 16, 4096, 4096, 8, 40, bf16, "fused_qkv"),   # TCD at batch 8 under CFG
+    ("onepass", 16, 1024, 1024, 8, 80, bf16, "fused_qkv"),
+    ("onepass", 1, 4096, 4096, 8, 40, bf16, "fused_qkv"),    # the two-call CFG path
+    ("onepass", 1, 1024, 1024, 8, 80, bf16, "fused_qkv"),
+    ("onepass", 16, 4096, 4096, 8, 40, bf16, "adversarial"),
+    ("online", 8, 4096, 4096, 1, 512, bf16, "contiguous"),   # path B at batch 8: no KV split
+]
+CASES += BATCH_CASES
 
 
 def log(*args):
@@ -335,7 +352,8 @@ def phase_check():
 
 
 def phase_time(gen):
-    """Kernel, plain and SDPA times at the shapes of the 512px and 1024px paths, bf16,
+    """Kernel, plain and SDPA times at the shapes of the 512px and 1024px paths and of
+    TCD at batch 8 and the two-call CFG path, bf16,
     beside the roofline bound and the exponentials' floor: device times from a CUDA
     graph, and the kernel's per-call time in a plain loop of wrapper calls."""
     from minsdtf_tpu_torch.ops import flash_attention as fa
@@ -349,6 +367,11 @@ def phase_time(gen):
         ("online", 2, 16384, 8, 40),    # path A: UNet 128x128 at 1024px
         ("online", 2, 4096, 8, 40),     # path A at K1's main shape: the same body
         ("online", 1, 16384, 1, 512),   # path B: the VAE mid-block at 1024px
+        ("onepass", 16, 4096, 8, 40),   # TCD at batch 8: the CFG pair of 8
+        ("onepass", 16, 1024, 8, 80),
+        ("onepass", 1, 4096, 8, 40),    # the two-call CFG path (5j)
+        ("onepass", 1, 1024, 8, 80),
+        ("online", 8, 4096, 1, 512),    # path B: the decoder at batch 8
     ]
     wrappers = _wrappers()
     lib = fa._lib()
@@ -388,11 +411,12 @@ def phase_time(gen):
     return timings
 
 
-def run_phase(label, generate, size, warm_images, expect, check=None):
+def run_phase(label, generate, size, warm_images, expect, check=None, batch=1):
     """``generate(return_latent=...)`` once cold, then ``warm_images`` times warm;
     the launch counts are zeroed just before the first warm image and read just
-    after it, and must equal ``expect``. ``check(image)`` adds named checks.
-    Returns (passed, launches, warm seconds, peak GB)."""
+    after it, and must equal ``expect``. ``check(image)`` adds named checks. A call
+    makes ``batch`` images; its seconds per image are its wall time / ``batch``.
+    Returns (passed, launches, warm seconds per image, peak GB)."""
     from minsdtf_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
@@ -407,19 +431,20 @@ def run_phase(label, generate, size, warm_images, expect, check=None):
     t0 = time.perf_counter()
     image, latent = generate(return_latent=True)
     torch.cuda.synchronize()
-    samples = [time.perf_counter() - t0]
+    samples = [(time.perf_counter() - t0) / batch]
     launches = {"onepass": fa.onepass_attention.launches, "online": fa.online_attention.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for _ in range(warm_images - 1):
         t0 = time.perf_counter()
         generate()
         torch.cuda.synchronize()
-        samples.append(time.perf_counter() - t0)
-    log(f"{label} warm {size}x{size}: median {statistics.median(samples):.4f} s/img of "
+        samples.append((time.perf_counter() - t0) / batch)
+    log(f"{label} warm {size}x{size}, batch {batch}: median {statistics.median(samples):.4f} "
+        f"s/img of "
         f"{len(samples)} images {[round(t, 4) for t in samples]}, peak memory {peak_gb:.3f} GB "
         f"({resident_gb:.3f} GB allocated before it), launches in the first {launches}")
     checks = {
-        f"image (1, {size}, {size}, 3) uint8": image.shape == (1, size, size, 3)
+        f"image ({batch}, {size}, {size}, 3) uint8": image.shape == (batch, size, size, 3)
         and str(image.dtype) == "uint8",
         "latent finite": bool(torch.isfinite(torch.from_numpy(latent)).all()),
         "image not constant": int(image.max()) > int(image.min()),
@@ -505,6 +530,96 @@ def phase_new_paths(pipe, size: int):
     return results
 
 
+def with_settings(pipe, **kw):
+    """A pipeline made with the constructor arguments ``kw`` (``scheduler_type``,
+    ``active_tcd``, ``prediction_type``) that holds ``pipe``'s modules."""
+    from minsdtf_tpu_torch import StableDiffusion
+
+    new = StableDiffusion(pipe.img_height, pipe.img_width, bpe_path=pipe.bpe_path,
+                          compute_dtype=pipe.compute_dtype, device=pipe.device, **kw)
+    for name in ("_unet", "_text_model", "_decoder", "_encoder", "_controlnet", "_tokenizer"):
+        setattr(new, name, getattr(pipe, name))
+    return new
+
+
+def write_safetensors(path: str, tensors) -> str:
+    """``{key: fp32 numpy array}`` as a .safetensors file: an 8-byte header
+    length, the JSON header, the raw little-endian data."""
+    header, blobs, offset = {}, [], 0
+    for key, a in tensors.items():
+        raw = np.ascontiguousarray(a, "<f4").tobytes()
+        header[key] = {"dtype": "F32", "shape": list(a.shape),
+                       "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head + b"".join(blobs))
+    return path
+
+
+def embedding_files(directory: str, seed: int = 6):
+    """A 2-vector textual-inversion embedding as ``.safetensors`` (``emb_params``)
+    and a 3-vector negative embedding as an A1111 ``.pt``, from ``seed``, at the
+    token embeddings' scale."""
+    rng = np.random.default_rng(seed)
+    ti = write_safetensors(os.path.join(directory, "ti.safetensors"),
+                           {"emb_params": rng.normal(0, 0.02, (2, 768)).astype(np.float32)})
+    neg = os.path.join(directory, "negative.pt")
+    torch.save({"string_to_param": {"*": torch.from_numpy(
+        rng.normal(0, 0.02, (3, 768)).astype(np.float32))}}, neg)
+    return ti, neg
+
+
+def phase_samplers(pipe, size: int, directory: str):
+    """The other samplers on ``pipe``'s modules at CFG 7.5, bf16: DPM++ 2M Karras
+    (5f, 15 steps), Euler-a (5g, 25), TCD at batch 8 (5h, 4 steps, the default
+    eta of 0.3), LCM (5i, 4), and a 25-step txt2img with a TI embedding from a
+    .safetensors file, a .pt negative embedding and a prompt of two LPW chunks
+    (5j), whose 154 tokens against the negative's 77 take two UNet calls a step.
+    Returns {path: run_phase results + (the generate call,)}, or None if a phase
+    failed."""
+    ti, neg = embedding_files(directory)
+    long_prompt = " ".join([PROMPT] * 3)
+    context = pipe.encode_text(long_prompt, embedding_data=ti)
+    plain = pipe.encode_text(long_prompt)
+    uncond = pipe.encode_text("", embedding_data=neg)
+    ti_diff = float(np.abs(context - plain).max())
+    log(f"phase 5j: context {context.shape}, negative {uncond.shape}, max |context with the "
+        f"embedding - without| {ti_diff:.4e}")
+    ti_checks = {"context (1, 154, 768)": context.shape == (1, 154, 768),
+                 "negative context (1, 77, 768)": uncond.shape == (1, 77, 768),
+                 "the embedding changes the context": ti_diff > 0}
+
+    def images_differ(image):
+        return {"the 8 images differ": all(
+            (image[i] != image[0]).any() for i in range(1, image.shape[0]))}
+
+    runs = [  # path, label, pipeline settings, prompt, call arguments, launches, check
+        ("dpm_karras", "phase 5f DPM++ 2M Karras", dict(scheduler_type="dpm_karras"), PROMPT,
+         dict(num_steps=15), {"onepass": 150, "online": 1}, None),
+        ("euler_a", "phase 5g Euler-a", dict(scheduler_type="euler_a"), PROMPT,
+         dict(num_steps=25), {"onepass": 250, "online": 1}, None),
+        ("tcd_b8", "phase 5h TCD batch 8", dict(active_tcd=True), PROMPT,
+         dict(num_steps=4, batch_size=8), {"onepass": 40, "online": 1}, images_differ),
+        ("lcm", "phase 5i LCM", dict(scheduler_type="lcm"), PROMPT,
+         dict(num_steps=4), {"onepass": 40, "online": 1}, None),
+        ("ti", "phase 5j textual inversion, two calls", {}, long_prompt,
+         dict(num_steps=25, embedding=ti, negative_embedding=neg),
+         {"onepass": 500, "online": 1}, lambda image: ti_checks),
+    ]
+    results = {}
+    for path, label, settings, prompt, kw, expect, check in runs:
+        sd = with_settings(pipe, **settings)
+        generate = (lambda sd=sd, prompt=prompt, kw=kw, **extra: sd.text_to_image(
+            prompt, unconditional_guidance_scale=7.5, seed=1234, **kw, **extra))
+        results[path] = (*run_phase(label, generate, size, WARM_IMAGES_SAMPLERS, expect, check,
+                                    batch=kw.get("batch_size", 1)), generate)
+        if not results[path][0]:
+            return None
+    return results
+
+
 def _kernel_group(name: str) -> str:
     lowered = name.lower()
     for group, marks in (("attention K1/K2", ("flash_onepass", "flash_online", "flash_bf16")),
@@ -568,12 +683,17 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not beside this script: {e}", file=sys.stderr)
         return 1
     os.makedirs(OUT_DIR, exist_ok=True)
+
+    def mark(done: str):
+        log(f"chip_smoke: {done} done at {time.perf_counter() - t_start:.1f} s")
+
     card, kind = phase_card()
     phase_build()
     errors = phase_check()
     if errors is None:
         return 1
     timings = phase_time(torch.Generator(device="cuda").manual_seed(0))
+    mark("phases 1-4")
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         bpe = synthetic_merges(tmp)
         ok, launches, samples, peak_gb, pipe = phase_txt2img(
@@ -589,14 +709,28 @@ def main() -> int:
                       "profile_1024.txt")
         del pipe_1024  # the later phases' peak memory holds only the 512px pipeline
         torch.cuda.empty_cache()
-        new_paths = phase_new_paths(pipe, 512)
-        if new_paths is None or not small_reference_check(bpe):
+        mark("phases 5, 5b and 7b")
+        samplers = phase_samplers(pipe, 512, tmp)
+        if samplers is None:
             return 1
-    s_per_img = statistics.median(samples)
-    phase_profile(txt2img(pipe), s_per_img, "phase 7", "profile.txt")
-    for path, label in (("controlnet", "phase 7c ControlNet"), ("img2img", "phase 7d img2img")):
-        _, _, warm, _, generate = new_paths[path]
-        phase_profile(generate, statistics.median(warm), label, f"profile_{path}.txt")
+        mark("phases 5f-5j")
+        new_paths = phase_new_paths(pipe, 512)
+        if new_paths is None:
+            return 1
+        mark("phases 5c-5e")
+        if not small_reference_check(bpe, tmp):
+            return 1
+        mark("phases 6-6c")
+        s_per_img = statistics.median(samples)
+        phase_profile(txt2img(pipe), s_per_img, "phase 7", "profile.txt")
+        for path, label in (("controlnet", "phase 7c ControlNet"), ("img2img", "phase 7d img2img")):
+            _, _, warm, _, generate = new_paths[path]
+            phase_profile(generate, statistics.median(warm), label, f"profile_{path}.txt")
+        # one call makes 8 images: its unprofiled wall is 8 x the median s/img
+        _, _, warm, _, generate = samplers["tcd_b8"]
+        phase_profile(generate, 8 * statistics.median(warm), "phase 7e TCD batch 8",
+                      "profile_tcd_b8.txt")
+    new_paths.update(samplers)
 
     rows = []
     for name, label, line in (("onepass", "flash_onepass (K1)", 153),
@@ -627,12 +761,14 @@ def main() -> int:
     return 0
 
 
-def small_reference_check(bpe: str) -> bool:
+def small_reference_check(bpe: str, directory: str) -> bool:
     """fp32 at 256x256 with small UNet / VAE / ControlNet widths, on the card and on
     the CPU with the same weights: txt2img (phase 6), then img2img, inpaint and
-    ControlNet txt2img (phase 6b). On the card they run K1 (1024 tokens, d=40) and
-    K2 (the VAE's d=192), on the CPU the plain versions. Latent within 1e-3, uint8
-    image within 1."""
+    ControlNet txt2img (phase 6b), then each other sampler, v-prediction, batch 2
+    and a TI embedding with a negative embedding (phase 6c, at CFG 3; the
+    samplers' step noise is drawn on the host, so both devices get the same). On the card they run
+    K1 (1024 tokens, d=40) and K2 (the VAE's d=192), on the CPU the plain versions.
+    Latent within 1e-3, uint8 image within 1."""
     from minsdtf_tpu_torch import StableDiffusion
     from minsdtf_tpu_torch.models import clip as clip_lib
     from minsdtf_tpu_torch.models import controlnet as controlnet_lib
@@ -650,24 +786,46 @@ def small_reference_check(bpe: str) -> bool:
             controlnet_lib.init("cpu", seed=3, **small)),
     )
     reference, mask, edges = synthetic_inputs(256)
+    ti, neg = embedding_files(directory)
     common = dict(num_steps=3, seed=7, return_latent=True)
-    runs = {
-        "phase 6 txt2img": lambda pipe: pipe.text_to_image("hello world", **common),
-        "phase 6b img2img": lambda pipe: pipe.image_to_image(
-            "hello world", reference_image=reference, **common),
-        "phase 6b inpaint": lambda pipe: pipe.inpaint(
+
+    def txt(pipe, **kw):
+        return pipe.text_to_image("hello world", **common, **kw)
+
+    # 6c at CFG 3: TCD, LCM and the Karras spacing start at t = 999, where x0 =
+    # (x - nr*eps) / sr multiplies eps by 1/sr = 14.7; at CFG 7.5 the random
+    # weights make latents of +-70 there, and the two devices' fp32, 1.5e-5 apart
+    # relative to that, differ by up to 1.5e-3 (PERF.md, run S1)
+    def txt3(pipe, **kw):
+        return txt(pipe, unconditional_guidance_scale=3.0, **kw)
+
+    runs = {  # label: (pipeline settings, the call)
+        "phase 6 txt2img": ({}, txt),
+        "phase 6b img2img": ({}, lambda pipe: pipe.image_to_image(
+            "hello world", reference_image=reference, **common)),
+        "phase 6b inpaint": ({}, lambda pipe: pipe.inpaint(
             "hello world", reference_image=reference, inpaint_mask=mask, mask_blur_strength=5,
-            **common),
-        "phase 6b ControlNet txt2img": lambda pipe: pipe.text_to_image(
-            "hello world", control_net_image=edges, **common),
+            **common)),
+        "phase 6b ControlNet txt2img": ({}, lambda pipe: pipe.text_to_image(
+            "hello world", control_net_image=edges, **common)),
+        "phase 6c DPM++ 2M": (dict(scheduler_type="dpm"), txt3),
+        "phase 6c DPM++ 2M Karras": (dict(scheduler_type="dpm_karras"), txt3),
+        "phase 6c Euler-a": (dict(scheduler_type="euler_a"), txt3),
+        "phase 6c TCD": (dict(active_tcd=True), txt3),
+        "phase 6c LCM": (dict(scheduler_type="lcm"), txt3),
+        "phase 6c v-prediction": (dict(prediction_type="v"), txt3),
+        "phase 6c batch 2": ({}, lambda pipe: txt3(pipe, batch_size=2)),
+        "phase 6c TI + negative embedding": ({}, lambda pipe: txt3(
+            pipe, embedding=ti, negative_embedding=neg)),
     }
     results = {}
     for device in ("cuda", "cpu"):
-        pipe = StableDiffusion(256, 256, bpe_path=bpe, compute_dtype=torch.float32,
+        base = StableDiffusion(256, 256, bpe_path=bpe, compute_dtype=torch.float32,
                                device=device)
         for name, model in models.items():
-            setattr(pipe, name, model.to(device).eval())
-        for label, run in runs.items():
+            setattr(base, name, model.to(device).eval())
+        for label, (settings, run) in runs.items():
+            pipe = with_settings(base, **settings) if settings else base
             before = fa.onepass_attention.launches + fa.online_attention.launches
             out = run(pipe)
             results[label, device] = out, (fa.onepass_attention.launches
@@ -677,11 +835,13 @@ def small_reference_check(bpe: str) -> bool:
         ((img_g, lat_g), n_g), ((img_c, lat_c), n_c) = results[label, "cuda"], results[label, "cpu"]
         lat_err = float(abs(lat_g - lat_c).max())
         img_err = int(abs(img_g.astype(int) - img_c.astype(int)).max())
-        ok = lat_err <= 1e-3 and img_err <= 1 and n_g > 0 and n_c == 0
+        ok = (img_g.shape == img_c.shape and lat_err <= 1e-3 and img_err <= 1 and n_g > 0
+              and n_c == 0)
         all_ok &= ok
-        log(f"{label} small fp32, card vs CPU: latent max_abs_err {lat_err:.3e} (tol 1e-3), "
-            f"image max |diff| {img_err} (tol 1), kernel launches {n_g} on the card, {n_c} on "
-            f"the CPU {'ok' if ok else 'FAIL'}")
+        log(f"{label} small fp32, card vs CPU: latent max_abs_err {lat_err:.3e} (tol 1e-3; max "
+            f"|latent| {float(abs(lat_c).max()):.3e}), image max |diff| {img_err} (tol 1), "
+            f"images {img_g.shape}, kernel launches {n_g} on the card, {n_c} on the CPU "
+            f"{'ok' if ok else 'FAIL'}")
     return all_ok
 
 

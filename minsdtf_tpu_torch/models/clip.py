@@ -100,17 +100,21 @@ def fused_lpw_encode(
     model: CLIPTextModel,
     tokens: torch.Tensor,              # (B, (MAX_LENGTH-2)*m + 2) int, LPW-padded
     weights: Optional[torch.Tensor],   # (B, L_out) fp32 per-token weights, or None
+    embedding: Optional[torch.Tensor] = None,  # (1, splice_n, 768) textual inversion
     *,
     m: int,                            # chunk count
+    splice_n: int = 0,                 # textual-inversion token count (0 = none)
     with_uncond: bool,                 # also encode [BOS]+[EOT]*76 in the same batch
     no_boseos_middle: bool,
     clip_skip: int,
     bos: int,                          # tokenizer BOS/EOT ids for chunk boundaries
     eot: int,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The whole text stack in one batch: chunk split -> embed -> encoder ->
-    boundary strip -> LPW weighting with the mean-preserving rescale, plus the
-    unconditional context as one extra batch row when ``with_uncond``.
+    """The whole text stack in one batch: chunk split -> embed -> textual-inversion
+    splice -> encoder -> boundary strip -> LPW weighting with the mean-preserving
+    rescale, plus the unconditional context as one extra batch row when
+    ``with_uncond``. The splice writes ``embedding`` over positions ``1..splice_n``
+    of chunk 0 of each prompt row; the unconditional row is left as it is.
 
     Returns ``(context fp32 (B, L_out, 768), uncond fp32 (1, 77, 768) | None)``."""
     b = tokens.shape[0]
@@ -133,6 +137,10 @@ def fused_lpw_encode(
         rows = torch.cat([rows, urow], dim=0)
     positions = torch.arange(chunk, device=rows.device).expand(rows.shape)
     emb = clip_embedding(model, rows, positions)
+    if splice_n:
+        tiled = embedding.to(emb.dtype).expand(b, splice_n, emb.shape[-1])
+        head = torch.cat([emb[:b, :1], tiled, emb[:b, splice_n + 1:]], dim=1)
+        emb = torch.cat([head, emb[b:]], dim=0)
     enc = text_encoder(model, emb.float(), clip_skip=clip_skip)
     uncond = enc[-1:] if with_uncond else None
     if with_uncond:

@@ -1,11 +1,19 @@
 """The public StableDiffusion pipeline: txt2img, img2img, inpaint and ControlNet
-with DDIM and classifier-free guidance, on the card.
+with classifier-free guidance, on the card.
 
 ``StableDiffusion(...).text_to_image(prompt, ...)`` tokenizes and parses the prompt
 on the host, encodes it with the CLIP text stack (the unconditional row rides in
 the first encode and is cached), draws the initial noise with the TF-Philox
 generator (the same seed gives the same noise as the JAX package and the
 reference), runs the step loop (:mod:`minsdtf_tpu_torch.sampler`) and decodes.
+``scheduler_type`` picks the sampler: "ddim" (the default; "euler" is the same
+update), "tcd" (or ``active_tcd=True``), "lcm", "dpm", "dpm_karras" or
+"euler_a"; ``prediction_type="v"`` takes a v-predicting UNet. The stochastic
+samplers' per-step noise is drawn on the host before the loop
+(:func:`draw_step_noise`), so a seed gives the same image on the card and on the
+CPU. A textual-inversion ``embedding`` (a ``.pt`` or ``.safetensors`` path, an
+array, or a list of them) is spliced in front of the prompt's tokens, and a
+``negative_embedding`` in front of the negative prompt's.
 ``image_to_image`` encodes the reference image with the VAE encoder and starts
 from it noised to the truncated schedule's first t; ``inpaint`` also blends the
 reference back outside the mask, in the latent each step and in the image at the
@@ -19,7 +27,7 @@ fixed seeds, and a ControlNet must be assigned to ``_controlnet``.
 
 from __future__ import annotations
 
-from typing import List, Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -35,9 +43,17 @@ from minsdtf_tpu_torch.models import vae as vae_lib
 from minsdtf_tpu_torch.models.common import cast_weights_
 from minsdtf_tpu_torch.text import prompt_weighting as lpw
 from minsdtf_tpu_torch.text.tokenizer import ClipTokenizer
+from minsdtf_tpu_torch.weights import textual_inversion
 
 MAX_PROMPT_LENGTH = 77
 PAD_TOKEN_ID = 49407
+
+
+def draw_step_noise(seed: int, shape: Sequence[int]) -> torch.Tensor:
+    """The stochastic samplers' per-step noise z, (n, B, h, w, 4) fp32 on the CPU,
+    from a CPU generator seeded with ``seed``: the same on every device."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
 
 
 def resolve_device(device) -> torch.device:
@@ -49,8 +65,8 @@ def resolve_device(device) -> torch.device:
 
 
 class StableDiffusion:
-    """Stable Diffusion 1.5 txt2img / img2img / inpaint / ControlNet (DDIM-like
-    scheduler, CFG) in PyTorch."""
+    """Stable Diffusion 1.5 txt2img / img2img / inpaint / ControlNet with CFG, on
+    any of the JAX package's schedulers, in PyTorch."""
 
     def __init__(
         self,
@@ -61,6 +77,9 @@ class StableDiffusion:
         compute_dtype: Optional[torch.dtype] = None,
         device=None,
         controlnet_path: Optional[str] = None,
+        active_tcd: bool = False,
+        scheduler_type: Optional[str] = None,
+        prediction_type: str = "epsilon",
     ):
         self.img_height = int(img_height)
         self.img_width = int(img_width)
@@ -70,6 +89,10 @@ class StableDiffusion:
                     f"{name}={v} is not a positive multiple of 64; the UNet's "
                     "downsampling stack requires image sides divisible by 64")
         self.clip_skip = int(clip_skip)
+        if prediction_type not in ("epsilon", "v"):
+            raise ValueError(
+                f"prediction_type must be 'epsilon' or 'v', got {prediction_type!r}")
+        self.prediction_type = prediction_type
         if controlnet_path is not None:
             raise NotImplementedError("checkpoint loading is not ported yet; assign a "
                                       "ControlNet module to `_controlnet`")
@@ -78,7 +101,9 @@ class StableDiffusion:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.compute_dtype = compute_dtype
         self.bpe_path = bpe_path
-        self.scheduler = sched_lib.Scheduler(active_tcd=False)
+        self.scheduler = sched_lib.make_scheduler(scheduler_type, active_tcd)
+        self.scheduler_type = scheduler_type or ("tcd" if active_tcd else "ddim")
+        self.active_tcd = self.scheduler.active_tcd
         self._unet = None
         self._text_model = None
         self._decoder = None
@@ -134,26 +159,30 @@ class StableDiffusion:
 
     # ---- text encoding ----------------------------------------------------------
 
-    def _encode_text_dev(self, prompt: Union[str, List[str]]) -> torch.Tensor:
-        """Prompt -> (B, 77*m, 768) fp32 context on the device, via A1111 LPW."""
+    def _encode_text_dev(self, prompt: Union[str, List[str]], embedding_data=None) -> torch.Tensor:
+        """Prompt -> (B, 77*m, 768) fp32 context on the device, via A1111 LPW, with
+        the textual-inversion vectors of ``embedding_data`` spliced in front."""
+        embedding = textual_inversion.embedding_matrix(embedding_data)
         return lpw.get_weighted_text_embeddings(
             self.tokenizer, self._fused_text_call, prompt,
-            model_max_length=MAX_PROMPT_LENGTH, pad_token_id=PAD_TOKEN_ID)
+            model_max_length=MAX_PROMPT_LENGTH, pad_token_id=PAD_TOKEN_ID,
+            embedding=None if embedding is None else embedding[None],
+            embedding_tokens_count=0 if embedding is None else embedding.shape[0])
 
     @torch.inference_mode()
     def _fused_text_call(self, token_array, weight_array, embedding, splice_n,
                          no_boseos_middle):
         """LPW ``fused_fn`` hook -> :func:`clip.fused_lpw_encode`. While the
         unconditional context is unset it is encoded as one more batch row."""
-        if embedding is not None or splice_n:
-            raise NotImplementedError("textual inversion is not ported yet")
         want_uncond = self._uncond is None
         tok = self.tokenizer
         context, uncond = clip_lib.fused_lpw_encode(
             self.text_model,
             torch.as_tensor(token_array, dtype=torch.long, device=self.device),
             None if weight_array is None else torch.as_tensor(weight_array, device=self.device),
+            None if embedding is None else torch.as_tensor(embedding, device=self.device),
             m=(token_array.shape[1] - 2) // (MAX_PROMPT_LENGTH - 2),
+            splice_n=int(splice_n),
             with_uncond=want_uncond,
             no_boseos_middle=bool(no_boseos_middle),
             clip_skip=self.clip_skip,
@@ -164,9 +193,11 @@ class StableDiffusion:
             self._uncond = uncond
         return context
 
-    def encode_text(self, prompt: Union[str, List[str]]) -> np.ndarray:
-        """Prompt -> (B, 77*m, 768) fp32 context via A1111 LPW."""
-        return self._encode_text_dev(prompt).cpu().numpy()
+    def encode_text(self, prompt: Union[str, List[str]], embedding_data=None) -> np.ndarray:
+        """Prompt -> (B, 77*m, 768) fp32 context via A1111 LPW. ``embedding_data``:
+        a textual-inversion file (``.pt`` or ``.safetensors``), an (n, 768) array,
+        or a list of them, concatenated along the token axis."""
+        return self._encode_text_dev(prompt, embedding_data).cpu().numpy()
 
     @torch.inference_mode()
     def _unconditional_context(self) -> torch.Tensor:
@@ -194,7 +225,7 @@ class StableDiffusion:
         return_latent=False,
     ):
         return self.generate_image(
-            self._encode_prompt(prompt, embedding),
+            self._encode_text_dev(prompt, embedding),
             negative_prompt=negative_prompt,
             batch_size=batch_size,
             num_steps=num_steps,
@@ -225,7 +256,7 @@ class StableDiffusion:
         return_latent=False,
     ):
         return self.generate_image(
-            self._encode_prompt(prompt, embedding),
+            self._encode_text_dev(prompt, embedding),
             negative_prompt=negative_prompt,
             batch_size=batch_size,
             num_steps=num_steps,
@@ -260,7 +291,7 @@ class StableDiffusion:
         return_latent=False,
     ):
         return self.generate_image(
-            self._encode_prompt(prompt, embedding),
+            self._encode_text_dev(prompt, embedding),
             negative_prompt=negative_prompt,
             batch_size=batch_size,
             num_steps=num_steps,
@@ -276,11 +307,6 @@ class StableDiffusion:
             callback=callback,
             return_latent=return_latent,
         )
-
-    def _encode_prompt(self, prompt, embedding) -> torch.Tensor:
-        if embedding is not None:
-            raise NotImplementedError("textual inversion is not ported yet")
-        return self._encode_text_dev(prompt)
 
     def generate_image(
         self,
@@ -301,17 +327,19 @@ class StableDiffusion:
         callback=None,
         eta=0.3,
         return_latent=False,
+        return_trajectory=False,
     ):
-        """``encoded_text``: a (S, 768) or (B, S, 768) context (numpy or tensor).
-        img2img runs only when ``0 < reference_image_strength < 1``; the inpaint
-        blends only with img2img (an ``inpaint_mask`` alone gives txt2img).
-        Returns the uint8 (B, H, W, 3) image as numpy, and the fp32 latent too when
-        ``return_latent``."""
+        """``encoded_text``: a (S, 768) or (B, S, 768) context (numpy or tensor),
+        broadcast over ``batch_size`` when its batch is 1. img2img runs only when
+        ``0 < reference_image_strength < 1``; the inpaint blends only with img2img
+        (an ``inpaint_mask`` alone gives txt2img). ``negative_embedding`` is encoded
+        with ``negative_prompt or ""``. ``eta`` is TCD's gamma. Returns the uint8
+        (B, H, W, 3) image as numpy, then the fp32 latent when ``return_latent``,
+        then the fp32 (n, B, h, w, 4) latent after each step when
+        ``return_trajectory``."""
         if diffusion_noise is not None and seed is not None:
             raise ValueError("`diffusion_noise` and `seed` should not both be passed to "
                              "`generate_image`.")
-        if negative_embedding is not None:
-            raise NotImplementedError("textual inversion is not ported yet")
         if control_net_image is not None and self.controlnet is None:
             raise ValueError("`control_net_image` needs a ControlNet; none is loaded")
         h8, w8 = self.img_height // 8, self.img_width // 8
@@ -320,8 +348,9 @@ class StableDiffusion:
             context = context[None]
         uncond = None
         if unconditional_guidance_scale > 0.0:
-            uncond = (self._unconditional_context() if negative_prompt is None
-                      else self._encode_text_dev(negative_prompt))
+            uncond = (self._unconditional_context()
+                      if negative_prompt is None and negative_embedding is None
+                      else self._encode_text_dev(negative_prompt or "", negative_embedding))
 
         if diffusion_noise is not None:
             noise = np.squeeze(np.asarray(diffusion_noise, np.float32))
@@ -331,6 +360,9 @@ class StableDiffusion:
             if seed is None:
                 seed = int(np.random.randint(0, 2**31 - 1))
             noise = rng_lib.stateless_normal((batch_size, h8, w8, 4), seed)
+        # the stochastic samplers' step noise: from the seed, or from a fresh seed
+        # when the caller gives the initial noise
+        key_seed = seed if seed is not None else int(np.random.randint(0, 2**31 - 1))
 
         use_img2img = reference_image is not None and 0.0 < reference_image_strength < 1.0
         strength = float(reference_image_strength) if use_img2img else None
@@ -366,16 +398,22 @@ class StableDiffusion:
 
         t_embs = torch.as_tensor(sched_lib.timestep_embedding(schedule.timesteps),
                                  device=self.device)
-        rows = {k: getattr(schedule, k) for k in sched_lib.ROW_KEYS}
-        image, latent = sampler.generate(
-            self.unet, self.decoder, latent0, context, uncond, t_embs, rows,
+        step_noise = None
+        if schedule.mode in sampler.NOISY_MODES or (schedule.mode == "tcd" and eta > 0.0):
+            step_noise = draw_step_noise(key_seed, (schedule.num_steps, *latent0.shape))
+            step_noise = step_noise.to(self.device)
+        image, latent, *trajectory = sampler.generate(
+            self.unet, self.decoder, latent0, context, uncond, t_embs, schedule.rows,
             float(unconditional_guidance_scale), float(guidance_rescale),
             controlnet=self.controlnet if hint is not None else None, hint=hint,
-            inpaint=inpaint, callback=callback)
-        image = image.cpu().numpy()
+            inpaint=inpaint, callback=callback, mode=schedule.mode, step_noise=step_noise,
+            v_prediction=self.prediction_type == "v", trace_latents=return_trajectory)
+        out = [image.cpu().numpy()]
         if return_latent:
-            return image, latent.float().cpu().numpy()
-        return image
+            out.append(latent.float().cpu().numpy())
+        if return_trajectory:
+            out.append(trajectory[0].cpu().numpy())
+        return out[0] if len(out) == 1 else tuple(out)
 
     @torch.inference_mode()
     def _encode_image(self, image_tensor: np.ndarray) -> np.ndarray:

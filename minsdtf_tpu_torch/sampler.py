@@ -1,11 +1,16 @@
-"""The DDIM + classifier-free-guidance denoising loop, as a Python step loop.
+"""The classifier-free-guidance denoising loop, as a Python step loop.
 
 Per step: the UNet (after the ControlNet, when one is given) on the batched CFG
 pair (batch 2B; two calls when the cond and uncond context lengths differ), the
-CFG combine and std-matching rescale (arXiv:2305.08891 §3.4), the DDIM row update
-from :class:`minsdtf_tpu_torch.scheduler.DenoiseSchedule`, and for inpaint the
-latent blend. Then the VAE decode, the inpaint pixel blend and
+CFG combine and std-matching rescale (arXiv:2305.08891 §3.4), for v-prediction
+the conversion of v to (x0, eps), the update of the schedule's mode (DDIM, TCD,
+LCM, DPM-Solver++(2M) or Euler-a) from the rows of
+:class:`minsdtf_tpu_torch.scheduler.DenoiseSchedule`, and for inpaint the latent
+blend. Then the VAE decode, the inpaint pixel blend and
 ``(x + 1) / 2 -> clip -> uint8``.
+
+The stochastic updates (LCM, Euler-a, TCD with eta > 0) take their per-step
+noise from ``step_noise``, drawn by the caller before the loop.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from typing import Callable, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from minsdtf_tpu_torch.scheduler import MODES
 
 
 def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float, epsilon: float = 1e-5):
@@ -34,6 +41,9 @@ class Inpaint(NamedTuple):
     pixel_mask: torch.Tensor    # (1, H, W, 1)
 
 
+NOISY_MODES = ("lcm", "euler_a")  # modes that need step_noise; TCD takes it optionally
+
+
 @torch.inference_mode()
 def generate(
     unet,
@@ -49,15 +59,33 @@ def generate(
     hint: Optional[torch.Tensor] = None,     # (B, 320, h, w) HintNet output, with controlnet
     inpaint: Optional[Inpaint] = None,
     callback: Optional[Callable[[int], None]] = None,
+    mode: str = "ddim",                      # DenoiseSchedule.mode
+    step_noise: Optional[torch.Tensor] = None,  # (n, B, h, w, 4) fp32 z per step
+    v_prediction: bool = False,
+    trace_latents: bool = False,
 ):
-    """Returns ``(image uint8 (B, 8h, 8w, 3), latent (B, h, w, 4))``; the image is
-    None when ``decoder`` is None. With ``controlnet``, each UNet call takes its
-    residuals for the same inputs and ``hint``. With ``inpaint``, each step's new
-    latent outside the mask is the reference latent noised to the step's t, and the
-    decoded image outside the pixel mask is the reference image. ``callback(step)``
-    is called after each step, from 1."""
+    """Returns ``(image uint8 (B, 8h, 8w, 3), latent (B, h, w, 4))``, and with
+    ``trace_latents`` a third element, the fp32 ``(n, B, h, w, 4)`` latent after
+    each step; the image is None when ``decoder`` is None. With ``controlnet``,
+    each UNet call takes its residuals for the same inputs and ``hint``. With
+    ``inpaint``, each step's new latent outside the mask is the reference latent
+    noised to the step's t, and the decoded image outside the pixel mask is the
+    reference image. ``callback(step)`` is called after each step, from 1.
+
+    ``mode`` must be one of ``scheduler.MODES``; "lcm" and "euler_a" need
+    ``step_noise``, and "tcd" re-noises only when it is given. With
+    ``v_prediction`` the model predicts v = sr*eps - nr*x0; CFG acts on the raw
+    v."""
+    if mode not in MODES:
+        raise ValueError(f"unknown sampler mode {mode!r}; one of {MODES}")
+    if mode in NOISY_MODES and step_noise is None:
+        raise ValueError(f"mode {mode!r} needs step_noise")
     dtype = latent0.dtype
     batch = latent0.shape[0]
+    n_steps = t_embs.shape[0]
+    if step_noise is not None and tuple(step_noise.shape) != (n_steps, *latent0.shape):
+        raise ValueError(f"step_noise is {tuple(step_noise.shape)}, not "
+                         f"{(n_steps, *latent0.shape)}")
     use_cfg = uncond_context is not None
     context = context.to(dtype).expand(batch, -1, -1)
     if use_cfg:
@@ -78,41 +106,67 @@ def generate(
         return unet(lat, t_emb, ctx, controls)
 
     latent = latent0
-    for i in range(t_embs.shape[0]):
+    x0_prev = torch.zeros(latent0.shape, device=latent0.device) if mode == "dpm" else None
+    trajectory = []
+    for i in range(n_steps):
         t_emb = t_embs[i][None]
         if not use_cfg:
-            eps = one_pass(latent, t_emb.expand(batch, -1), context, hint)
+            out = one_pass(latent, t_emb.expand(batch, -1), context, hint)
         else:
             if cfg_batched:
-                out = one_pass(torch.cat([latent, latent]), t_emb.expand(2 * batch, -1),
-                               ctx_pair, hint_pair)
-                uncond, cond = out.chunk(2)
+                pair = one_pass(torch.cat([latent, latent]), t_emb.expand(2 * batch, -1),
+                                ctx_pair, hint_pair)
+                uncond, cond = pair.chunk(2)
             else:
                 uncond = one_pass(latent, t_emb.expand(batch, -1), uncond_context, hint)
                 cond = one_pass(latent, t_emb.expand(batch, -1), context, hint)
             merged = uncond + guidance_scale * (cond - uncond)
-            eps = rescale_noise_cfg(merged, cond, guidance_rescale)
-        eps = eps.float()
+            out = rescale_noise_cfg(merged, cond, guidance_rescale)
+        out = out.float()
         lat32 = latent.float()
-        x0 = (lat32 - rows["nr_t"][i] * eps) / rows["sr_t"][i]
-        if rows["is_last"][i] > 0:
-            new = x0
+        r = {k: v[i] for k, v in rows.items()}
+        if v_prediction:
+            # v = sr*eps - nr*x0  =>  x0 = sr*x - nr*v, eps = nr*x + sr*v
+            x0 = r["sr_t"] * lat32 - r["nr_t"] * out
+            eps = r["nr_t"] * lat32 + r["sr_t"] * out
         else:
-            new = rows["sr_prev"][i] * x0 + rows["nr_prev"][i] * eps
+            eps = out
+            x0 = (lat32 - r["nr_t"] * eps) / r["sr_t"]
+        last = r["is_last"] > 0
+        z = None if step_noise is None else step_noise[i]
+        if mode == "dpm":
+            # the 2M combine with the fp32 x0 of the step before, taken before
+            # the inpaint blend; w = 0 on the first and last steps
+            d = (1.0 + r["w"]) * x0 - r["w"] * x0_prev
+            new = r["c_x"] * lat32 + r["c_d"] * d
+            x0_prev = x0
+        elif mode == "lcm":
+            denoised = r["c_out"] * x0 + r["c_skip"] * lat32
+            new = denoised if last else r["sr_prev"] * denoised + r["nr_prev"] * z
+        elif mode == "euler_a":
+            new = x0 if last else r["c_x"] * lat32 + r["c_d"] * eps + r["c_noise"] * z
+        elif mode == "tcd":
+            denoised = r["sr_s"] * x0 + r["nr_s"] * eps
+            new = denoised if last or z is None else r["c_denoised"] * denoised + r["c_noise"] * z
+        else:
+            new = x0 if last else r["sr_prev"] * x0 + r["nr_prev"] * eps
         if inpaint is not None:
             # the reference latent noised to the *current* t with the same noise
             # every step, blended in fp32 before the cast
-            origin = rows["sr_t"][i] * inpaint.init_latent + rows["nr_t"][i] * inpaint.noise
+            origin = r["sr_t"] * inpaint.init_latent + r["nr_t"] * inpaint.noise
             m = inpaint.latent_mask
             new = origin * (1.0 - m) + new * m
         latent = new.to(dtype)
+        if trace_latents:
+            trajectory.append(latent.float())
         if callback is not None:
             callback(i + 1)
+    traced = (torch.stack(trajectory),) if trace_latents else ()
 
     if decoder is None:
-        return None, latent
+        return (None, latent, *traced)
     image = (decoder(latent).float() + 1.0) * 0.5
     if inpaint is not None:
         pm = inpaint.pixel_mask
         image = inpaint.image01 * (1.0 - pm) + image * pm
-    return (image * 255.0).clamp(0.0, 255.0).to(torch.uint8), latent
+    return ((image * 255.0).clamp(0.0, 255.0).to(torch.uint8), latent, *traced)

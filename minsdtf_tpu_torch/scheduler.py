@@ -1,13 +1,16 @@
 """Diffusion noise schedule: tables, timestep selection, and per-step coefficients.
 
-Host-side numpy, a copy of the JAX package's scheduler for the DDIM-like and TCD
-schedules:
+Host-side numpy, a copy of the JAX package's scheduler:
 
 1. :class:`Scheduler` has the reference scheduler's public surface
-   (``set_timesteps``, ``step``, ``alphas_cumprod``, ``signal_rates``, ...).
+   (``set_timesteps``, ``step``, ``alphas_cumprod``, ``signal_rates``, ...) for
+   the DDIM-like and TCD schedules; :class:`LCMScheduler`,
+   :class:`DPMSolverScheduler` (DPM-Solver++(2M), optionally on the Karras
+   spacing) and :class:`EulerAncestralScheduler` extend it, each with its host
+   ``step``. :func:`make_scheduler` maps a ``scheduler_type`` to one of them.
 2. :class:`DenoiseSchedule` holds every per-step scalar the sampling update needs,
    precomputed on the host, so the step loop in :mod:`minsdtf_tpu_torch.sampler`
-   reads plain floats.
+   reads plain floats. Its ``mode`` names the update the loop applies.
 
 Schedule math: "scaled-linear" betas,
 ``alphas_cumprod = cumprod(1 - linspace(sqrt(b0), sqrt(b1), T)**2)``;
@@ -17,7 +20,7 @@ Schedule math: "scaled-linear" betas,
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -71,11 +74,33 @@ def tcd_timesteps(
     return origin[idx].astype(np.int32)
 
 
+def karras_timesteps(num_inference_steps: int, alphas_cumprod: np.ndarray,
+                     rho: float = 7.0) -> np.ndarray:
+    """Karras et al. sigma spacing (arXiv:2206.00364 eq. 5) snapped to the training
+    grid: sigmas run from sigma_max to sigma_min evenly in sigma^(1/rho), and each
+    is snapped to the nearest timestep of sigma(t) = sqrt((1-acp)/acp), with
+    collisions pushed down so that the schedule strictly descends."""
+    sigmas_all = np.sqrt((1.0 - alphas_cumprod) / alphas_cumprod)
+    sig_min, sig_max = float(sigmas_all[0]), float(sigmas_all[-1])
+    ramp = np.linspace(0, 1, num_inference_steps)
+    s = (sig_max ** (1 / rho) + ramp * (sig_min ** (1 / rho) - sig_max ** (1 / rho))) ** rho
+    idx = np.searchsorted(sigmas_all, s).clip(1, len(sigmas_all) - 1)
+    left = np.abs(sigmas_all[idx - 1] - s) <= np.abs(sigmas_all[idx] - s)
+    ts = np.where(left, idx - 1, idx).astype(np.int64)
+    for i in range(1, len(ts)):
+        if ts[i] >= ts[i - 1]:
+            ts[i] = ts[i - 1] - 1
+    if ts[-1] < 0:
+        raise ValueError(f"karras grid collapsed at {num_inference_steps} steps")
+    return ts.astype(np.int32)
+
+
 class Scheduler:
     """Host-side scheduler with the reference's public surface.
 
     ``step`` is the reference's host update; the sampler uses
-    :class:`DenoiseSchedule` instead.
+    :class:`DenoiseSchedule` instead. ``mode`` is "tcd" or "ddim" here, and the
+    subclasses' own name otherwise.
     """
 
     order = 1
@@ -89,6 +114,7 @@ class Scheduler:
         active_tcd: bool = True,
     ):
         self.active_tcd = active_tcd
+        self.mode = "tcd" if active_tcd else "ddim"
         self.num_train_timesteps = num_train_timesteps
         self.original_inference_steps = original_inference_steps
         self.alphas_cumprod = make_alphas_cumprod(num_train_timesteps, beta_start, beta_end)
@@ -240,8 +266,194 @@ class Scheduler:
         return self.num_train_timesteps
 
 
+class LCMScheduler(Scheduler):
+    """Latent Consistency Model sampler (arXiv:2310.04378) on TCD's timestep grid.
+    With ``st = t * timestep_scaling``:
+
+        c_skip = sigma_data^2 / (st^2 + sigma_data^2)
+        c_out  = st / sqrt(st^2 + sigma_data^2)
+        denoised = c_out * pred_x0 + c_skip * latent_prev
+        x' = last ? denoised : sr_prev * denoised + nr_prev * z   (fresh z per step)
+    """
+
+    def __init__(self, *args, sigma_data: float = 0.5, timestep_scaling: float = 10.0,
+                 **kwargs):
+        kwargs["active_tcd"] = True  # the TCD timestep grid
+        super().__init__(*args, **kwargs)
+        self.mode = "lcm"
+        self.sigma_data = float(sigma_data)
+        self.timestep_scaling = float(timestep_scaling)
+
+    def boundary_scalings(self, timestep):
+        st = np.asarray(timestep, np.float64) * self.timestep_scaling
+        c_skip = self.sigma_data**2 / (st**2 + self.sigma_data**2)
+        c_out = st / np.sqrt(st**2 + self.sigma_data**2)
+        return c_skip, c_out
+
+    def step(self, latent: np.ndarray, timestep: int, latent_prev: np.ndarray,
+             eta: float = 0.3):
+        """``eta`` is ignored: LCM re-noises fully between steps."""
+        if self.num_inference_steps is None:
+            raise ValueError("Call `set_timesteps` before `step`.")
+        if self.step_index is None:
+            self._init_step_index(timestep)
+        i = self.step_index
+        is_last = i == self.num_inference_steps - 1
+        prev_t = int(self.timesteps[i + 1]) if i + 1 < len(self.timesteps) else 0
+
+        sr_t = self.signal_rates[timestep]
+        nr_t = self.noise_rates[timestep]
+        pred_x0 = (latent_prev - nr_t * latent) / sr_t
+        c_skip, c_out = self.boundary_scalings(timestep)
+        denoised = c_out * pred_x0 + c_skip * latent_prev
+        if is_last:
+            out = denoised
+        else:
+            noise = np.random.randn(*latent.shape).astype(np.float32)
+            out = self.signal_rates[prev_t] * denoised + self.noise_rates[prev_t] * noise
+        self._step_index += 1
+        return out
+
+
+class DPMSolverScheduler(Scheduler):
+    """DPM-Solver++(2M) (arXiv:2211.01095, data prediction) on the DDIM grid, or on
+    the Karras spacing with ``karras_sigmas``. Per step, with
+    ``lambda(t) = ln(signal_rate / noise_rate)`` and ``h = lambda_prev - lambda_t``:
+
+        x0     = (x - nr_t * eps) / sr_t
+        D      = (1 + w) * x0 - w * x0_prev,  w = h / (2 * h_prev)
+        x_prev = (nr_prev / nr_t) * x + sr_prev * (1 - exp(-h)) * D
+
+    The first step has no ``x0_prev`` (w = 0: the DDIM update). The last step goes
+    to the clean boundary (noise rate 0), where the update is ``x = x0``.
+    """
+
+    def __init__(self, *args, karras_sigmas: bool = False, **kwargs):
+        kwargs["active_tcd"] = False
+        super().__init__(*args, **kwargs)
+        self.mode = "dpm"
+        self.karras_sigmas = bool(karras_sigmas)
+        self._prev_x0 = None
+        self._prev_h = None
+
+    def set_timesteps(self, num_inference_steps=None, **kwargs):
+        super().set_timesteps(num_inference_steps, **kwargs)
+        if self.karras_sigmas and num_inference_steps is not None:
+            self.timesteps = karras_timesteps(num_inference_steps, self.alphas_cumprod)
+
+    def _lambda(self, t: int) -> float:
+        return float(np.log(self.signal_rates[t] / self.noise_rates[t]))
+
+    def step(self, latent: np.ndarray, timestep: int, latent_prev: np.ndarray,
+             eta: float = 0.3):
+        """``eta`` is ignored (deterministic)."""
+        if self.num_inference_steps is None:
+            raise ValueError("Call `set_timesteps` before `step`.")
+        if self.step_index is None:
+            self._init_step_index(timestep)
+            self._prev_x0 = None
+            self._prev_h = None
+        i = self.step_index
+        is_last = i == self.num_inference_steps - 1
+
+        sr_t = self.signal_rates[timestep]
+        nr_t = self.noise_rates[timestep]
+        x0 = (latent_prev - nr_t * latent) / sr_t
+        if is_last:
+            out = x0
+            h = None
+        else:
+            prev_t = int(self.timesteps[i + 1])
+            h = self._lambda(prev_t) - self._lambda(timestep)
+            if self._prev_x0 is None:
+                d = x0
+            else:
+                w = h / (2.0 * self._prev_h)
+                d = (1.0 + w) * x0 - w * self._prev_x0
+            out = (self.noise_rates[prev_t] / nr_t) * latent_prev \
+                + self.signal_rates[prev_t] * (1.0 - np.exp(-h)) * d
+        self._prev_x0 = x0
+        self._prev_h = h
+        self._step_index += 1
+        return out
+
+
+class EulerAncestralScheduler(Scheduler):
+    """Euler-Ancestral ("Euler a"; Karras et al. arXiv:2206.00364 Alg. 2 with the
+    ancestral noise split) in VP coordinates. With ``sigma(t) = nr / sr``:
+
+        sigma_up^2 = sig_prev^2 * (sig_t^2 - sig_prev^2) / sig_t^2
+        sigma_down = sqrt(sig_prev^2 - sigma_up^2)
+        x' = c_x * x + c_d * eps + c_noise * z,
+        c_x = sr_prev / sr_t,  c_d = sr_prev * (sigma_down - sig_t),
+        c_noise = sr_prev * sigma_up
+
+    The last step returns pred_x0. Plain "euler" is DDIM: on the VP
+    eps-prediction parametrization the two updates are the same.
+    """
+
+    def __init__(self, *args, **kwargs):
+        kwargs["active_tcd"] = False
+        super().__init__(*args, **kwargs)
+        self.mode = "euler_a"
+
+    def _sigma(self, t: int) -> float:
+        return float(self.noise_rates[t] / self.signal_rates[t])
+
+    def step(self, latent: np.ndarray, timestep: int, latent_prev: np.ndarray,
+             eta: float = 0.3, noise: Optional[np.ndarray] = None):
+        """``eta`` is ignored (the ancestral split fixes the noise level).
+        ``noise`` replaces the drawn z."""
+        if self.num_inference_steps is None:
+            raise ValueError("Call `set_timesteps` before `step`.")
+        if self.step_index is None:
+            self._init_step_index(timestep)
+        i = self.step_index
+        is_last = i == self.num_inference_steps - 1
+
+        sr_t = self.signal_rates[timestep]
+        nr_t = self.noise_rates[timestep]
+        x0 = (latent_prev - nr_t * latent) / sr_t
+        if is_last:
+            out = x0
+        else:
+            prev_t = int(self.timesteps[i + 1])
+            sig_t, sig_p = self._sigma(timestep), self._sigma(prev_t)
+            sig_up2 = sig_p**2 * (sig_t**2 - sig_p**2) / sig_t**2
+            sig_up = np.sqrt(max(0.0, sig_up2))
+            sig_down = np.sqrt(max(0.0, sig_p**2 - sig_up2))
+            sr_prev = self.signal_rates[prev_t]
+            z = noise if noise is not None else np.random.randn(*latent.shape).astype(np.float32)
+            out = ((sr_prev / sr_t) * latent_prev
+                   + sr_prev * (sig_down - sig_t) * latent
+                   + sr_prev * sig_up * z)
+        self._step_index += 1
+        return out
+
+
+SCHEDULER_TYPES = ("ddim", "euler", "tcd", "lcm", "dpm", "dpm_karras", "euler_a")
+
+
+def make_scheduler(scheduler_type: Optional[str] = None, active_tcd: bool = False) -> Scheduler:
+    """The scheduler for a pipeline's ``scheduler_type``; None means "tcd" with
+    ``active_tcd`` and "ddim" without. "euler" is DDIM (see
+    :class:`EulerAncestralScheduler`)."""
+    if scheduler_type is None:
+        scheduler_type = "tcd" if active_tcd else "ddim"
+    if scheduler_type == "lcm":
+        return LCMScheduler()
+    if scheduler_type in ("dpm", "dpm_karras"):
+        return DPMSolverScheduler(karras_sigmas=scheduler_type == "dpm_karras")
+    if scheduler_type == "euler_a":
+        return EulerAncestralScheduler()
+    if scheduler_type in ("ddim", "euler", "tcd"):
+        return Scheduler(active_tcd=scheduler_type == "tcd")
+    raise ValueError(f"unknown scheduler_type {scheduler_type!r}; one of {SCHEDULER_TYPES}")
+
+
 ROW_KEYS = ("sr_t", "nr_t", "sr_prev", "nr_prev", "sr_s", "nr_s", "c_denoised",
-            "c_noise", "is_last")
+            "c_noise", "c_skip", "c_out", "c_x", "c_d", "w", "is_last")
+MODES = ("ddim", "tcd", "lcm", "dpm", "euler_a")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,26 +461,40 @@ class DenoiseSchedule:
     """Per-step coefficients, each an (n,) float32 array (timesteps int32).
 
     The update from row ``i``, given model output ``eps`` and current latent ``x``
-    (matches :meth:`Scheduler.step`):
+    (matches the schedulers' ``step``), by ``mode``:
 
         x0 = (x - nr_t * eps) / sr_t
-        DDIM-like:  x' = last ? x0 : sr_prev * x0 + nr_prev * eps
-        TCD:        d  = sr_s * x0 + nr_s * eps
-                    x' = (last or eta==0) ? d : c_denoised * d + c_noise * z
+        ddim:     x' = last ? x0 : sr_prev * x0 + nr_prev * eps
+        tcd:      d  = sr_s * x0 + nr_s * eps
+                  x' = (last or eta==0) ? d : c_denoised * d + c_noise * z
+        lcm:      d  = c_out * x0 + c_skip * x
+                  x' = last ? d : sr_prev * d + nr_prev * z
+        dpm:      d  = (1 + w) * x0 - w * x0_prev     (x0 of the step before)
+                  x' = c_x * x + c_d * d
+        euler_a:  x' = last ? x0 : c_x * x + c_d * eps + c_noise * z
     """
 
     timesteps: np.ndarray        # (n,) int32, descending: the t fed to the UNet
     sr_t: np.ndarray             # signal_rates[t]
     nr_t: np.ndarray             # noise_rates[t]
-    sr_prev: np.ndarray          # signal_rates[prev_t]   (DDIM branch)
+    sr_prev: np.ndarray          # signal_rates[prev_t]   (DDIM and LCM)
     nr_prev: np.ndarray          # noise_rates[prev_t]
-    sr_s: np.ndarray             # signal_rates[t_s]      (TCD branch)
+    sr_s: np.ndarray             # signal_rates[t_s]      (TCD)
     nr_s: np.ndarray             # noise_rates[t_s]
     c_denoised: np.ndarray       # sqrt(a_prev / a_s)     (TCD re-noise mix)
-    c_noise: np.ndarray          # sqrt(1 - a_prev / a_s)
+    c_noise: np.ndarray          # TCD: sqrt(1 - a_prev / a_s); Euler-a: sr_prev * sigma_up
     is_last: np.ndarray          # (n,) float32 {0,1}
     active_tcd: bool
     eta: float
+    # LCM boundary scalings (zeros unless mode == "lcm")
+    c_skip: np.ndarray = None    # sigma_d^2 / (st^2 + sigma_d^2)
+    c_out: np.ndarray = None     # st / sqrt(st^2 + sigma_d^2)
+    # DPM-Solver++(2M) and Euler-a coefficients (zeros in the other modes)
+    c_x: np.ndarray = None       # dpm: nr_prev / nr_t (0 on the last step); euler_a: sr_prev / sr_t
+    c_d: np.ndarray = None       # dpm: sr_prev * (1 - exp(-h)) (1 on the last step);
+                                 # euler_a: sr_prev * (sigma_down - sig_t)
+    w: np.ndarray = None         # dpm: h / (2 h_prev); 0 on the first and last steps
+    mode: str = "ddim"           # one of MODES
     # img2img: the timestep at which the init latent is noised (one step above
     # the first iterated step, as in the reference).
     init_timestep: int = 0
@@ -276,6 +502,10 @@ class DenoiseSchedule:
     @property
     def num_steps(self) -> int:
         return int(self.timesteps.shape[0])
+
+    @property
+    def rows(self) -> Dict[str, np.ndarray]:
+        return {k: getattr(self, k) for k in ROW_KEYS}
 
 
 def build_denoise_schedule(
@@ -287,7 +517,8 @@ def build_denoise_schedule(
 ) -> DenoiseSchedule:
     """Precompute the :class:`DenoiseSchedule` for a generation run:
     ``set_timesteps(num_steps)`` then, for img2img, truncation to the first
-    ``int(num_steps*strength + 0.5)`` ascending entries."""
+    ``int(num_steps*strength + 0.5)`` ascending entries. The rows of each mode are
+    built as its scheduler's ``step`` computes them."""
     scheduler.set_timesteps(num_inference_steps=None if timesteps is not None else num_steps,
                             timesteps=list(timesteps) if timesteps is not None else None)
     full = scheduler.timesteps.astype(np.int64)  # descending
@@ -300,8 +531,12 @@ def build_denoise_schedule(
     # the reference indexes out of bounds when k == n: clamp to the top of the schedule
     init_timestep = int(full[start - 1]) if start > 0 else int(full[0])
 
+    mode = scheduler.mode
+    if mode not in MODES:
+        raise ValueError(f"unknown scheduler mode {mode!r}; one of {MODES}")
     acp = scheduler.alphas_cumprod
     rows_t, rows = [], {k: [] for k in ROW_KEYS}
+    prev_h = None
     for i in range(start, n):
         t = int(full[i])
         is_last = i == n - 1
@@ -318,13 +553,50 @@ def build_denoise_schedule(
         rows["sr_s"].append(np.sqrt(a_s))
         rows["nr_s"].append(np.sqrt(1.0 - a_s))
         rows["c_denoised"].append(np.sqrt(a_prev / a_s))
-        rows["c_noise"].append(np.sqrt(max(0.0, 1.0 - a_prev / a_s)))
+        sig_t = sig_p = sig_up2 = None
+        if mode == "euler_a" and not is_last:
+            sig_t = float(np.sqrt((1.0 - a_t) / a_t))
+            sig_p = float(np.sqrt((1.0 - a_prev) / a_prev))
+            sig_up2 = sig_p**2 * (sig_t**2 - sig_p**2) / sig_t**2
+            # the ancestral noise: sr_prev * sigma_up
+            rows["c_noise"].append(float(np.sqrt(a_prev) * np.sqrt(max(0.0, sig_up2))))
+        else:
+            rows["c_noise"].append(np.sqrt(max(0.0, 1.0 - a_prev / a_s)))
+        if mode == "lcm":
+            c_skip, c_out = scheduler.boundary_scalings(t)
+            rows["c_skip"].append(float(c_skip))
+            rows["c_out"].append(float(c_out))
+        else:
+            rows["c_skip"].append(0.0)
+            rows["c_out"].append(0.0)
+        c_x, c_d, w = 0.0, 0.0, 0.0
+        if mode == "dpm":
+            if is_last:
+                # the clean boundary (noise rate 0): x' = x0, first order
+                c_d, prev_h = 1.0, None
+            else:
+                lam_t = np.log(np.sqrt(a_t) / np.sqrt(1.0 - a_t))
+                lam_p = np.log(np.sqrt(a_prev) / np.sqrt(1.0 - a_prev))
+                h = float(lam_p - lam_t)
+                c_x = float(np.sqrt(1.0 - a_prev) / np.sqrt(1.0 - a_t))
+                c_d = float(np.sqrt(a_prev) * (1.0 - np.exp(-h)))
+                w = 0.0 if prev_h is None else h / (2.0 * prev_h)
+                prev_h = h
+        elif mode == "euler_a" and not is_last:
+            # the last step takes x0 (is_last)
+            sig_down = float(np.sqrt(max(0.0, sig_p**2 - sig_up2)))
+            c_x = float(np.sqrt(a_prev / a_t))
+            c_d = float(np.sqrt(a_prev) * (sig_down - sig_t))
+        rows["c_x"].append(c_x)
+        rows["c_d"].append(c_d)
+        rows["w"].append(w)
         rows["is_last"].append(1.0 if is_last else 0.0)
 
     return DenoiseSchedule(
         timesteps=np.asarray(rows_t, dtype=np.int32),
         active_tcd=scheduler.active_tcd,
         eta=eta,
+        mode=mode,
         init_timestep=init_timestep,
         **{k: np.asarray(v, dtype=np.float32) for k, v in rows.items()},
     )

@@ -15,7 +15,7 @@ from minsdtf_tpu.text.tokenizer import ClipTokenizer as JaxTokenizer
 from minsdtf_tpu_torch.models import clip as tclip
 from minsdtf_tpu_torch.text import prompt_weighting as tlpw
 from minsdtf_tpu_torch.text.tokenizer import ClipTokenizer
-from torch_port_utils import load, perturb_norms, write_merges
+from torch_port_utils import load, one_torch_thread, perturb_norms, write_merges  # noqa: F401
 
 MODULE_TOL = 1e-4
 

@@ -5,7 +5,9 @@ import numpy as np
 import pytest
 
 from minsdtf_tpu_torch import StableDiffusion
-from torch_port_utils import assert_same_image, edge_image, make_pipelines, write_merges
+from torch_port_utils import (  # noqa: F401 (one_torch_thread)
+    assert_same_image, edge_image, make_pipelines, one_torch_thread, write_merges,
+)
 
 
 @pytest.fixture(scope="module")
@@ -39,5 +41,5 @@ def test_control_net_image_needs_a_controlnet(tmp_path):
         pipe.generate_image(np.zeros((77, 768), np.float32), control_net_image=edge_image(64, 64))
     with pytest.raises(NotImplementedError):
         StableDiffusion(64, 64, device="cpu", controlnet_path="controlnet.safetensors")
-    with pytest.raises(NotImplementedError):
-        pipe.text_to_image("hello", embedding=np.zeros((1, 768), np.float32))
+    with pytest.raises(ValueError, match="textual-inversion"):
+        pipe.text_to_image("hello", embedding=np.zeros((1, 640), np.float32))

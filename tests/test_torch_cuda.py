@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions, and
-the VAE encoder and ControlNet that run them on the img2img and ControlNet paths,
-against the same modules on the CPU.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions; the
+VAE encoder and ControlNet that run them on the img2img and ControlNet paths,
+against the same modules on the CPU; and the step loop at batch 2 in bf16 on the
+card against fp32 on the CPU.
 
 Every test here needs an NVIDIA card and ``nvcc`` (Hopper, ``sm_90a``) and skips
 where torch sees no CUDA device. The JAX package is not imported, so the file also
@@ -218,3 +219,62 @@ def test_controlnet_residuals_on_the_card_match_the_cpu(cuda):
     for g, w in zip(got, want):
         scale = w.abs().max().item()
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("case", chip_smoke.BATCH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_kernel_matches_plain_at_the_batch_shapes(cuda, case):
+    """The shapes of TCD at batch 8 and of the two-call CFG path, as phase 3 of
+    the smoke run checks them (its p-rounding slack included)."""
+    wrapper = getattr(tfa, f"{case[0]}_attention")
+    before = wrapper.launches
+    ok, _, line = chip_smoke.check_case(case)
+    assert wrapper.launches == before + 1
+    assert ok, line
+
+
+def _sampler_run(device, dtype, unet, mode):
+    """Batch 2 under CFG 7.5, 3 steps, on a 32x32 latent: the UNet's level 0
+    self-attention (1024 tokens, d=40) runs on K1 at B = 4 on the card."""
+    from minsdtf_tpu_torch import sampler as tsampler
+    from minsdtf_tpu_torch import scheduler as tsched
+    from minsdtf_tpu_torch.models.common import cast_weights_
+
+    schedule = tsched.build_denoise_schedule(tsched.make_scheduler(mode), 3)
+    gen = torch.Generator().manual_seed(3)
+    latent0 = torch.randn(2, 32, 32, 4, generator=gen)
+    ctx = torch.randn(2, 77, 768, generator=gen)
+    unc = torch.randn(1, 77, 768, generator=gen)
+    noise = torch.randn(3, 2, 32, 32, 4, generator=gen)
+    t_embs = torch.from_numpy(tsched.timestep_embedding(schedule.timesteps))
+    unet = cast_weights_(unet.to(device), dtype)
+    with torch.inference_mode():
+        _, latent = tsampler.generate(
+            unet, None, latent0.to(device, dtype), ctx.to(device), unc.to(device),
+            t_embs.to(device), schedule.rows, 7.5, 0.7, mode=schedule.mode,
+            step_noise=noise.to(device) if mode == "euler_a" else None)
+    return latent.float().cpu()
+
+
+@pytest.mark.parametrize("mode", ["ddim", "euler_a"])
+def test_bf16_sampler_at_batch_2_on_the_card_matches_the_cpu(cuda, mode):
+    """The card's bf16 run errs from the CPU's fp32 run by no more than twice as
+    much as the same bf16 run on the CPU does: the card adds no error of its own
+    beyond bf16's rounding."""
+    from minsdtf_tpu_torch.models import unet as tunet
+
+    def make():
+        small = dict(widths=(320, 64, 128, 128), temb_dim=128)
+        return tunet.fuse_attention_projections(tunet.init("cpu", seed=0, **small)).eval()
+
+    want = _sampler_run("cpu", torch.float32, make(), mode)
+    cpu_bf16 = _sampler_run("cpu", torch.bfloat16, make(), mode)
+    before = tfa.onepass_attention.launches
+    card_bf16 = _sampler_run(cuda, torch.bfloat16, make(), mode)
+    # level 0's 2 down and 3 up self-attentions, once a step on the CFG pair
+    assert tfa.onepass_attention.launches == before + 3 * 5
+
+    def rel_rms(got):
+        return ((got - want).square().mean() / want.square().mean()).sqrt().item()
+
+    assert torch.isfinite(card_bf16).all() and card_bf16.shape == (2, 32, 32, 4)
+    assert rel_rms(card_bf16) <= 2 * rel_rms(cpu_bf16), (rel_rms(card_bf16), rel_rms(cpu_bf16))

@@ -1,6 +1,8 @@
 """The port's host modules (tokenizer, prompt weighting, schedule, Philox noise)
 and the JAX -> torch weight conversion, against the JAX package."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -18,7 +20,7 @@ from minsdtf_tpu_torch.models import vae as tvae
 from minsdtf_tpu_torch.text import prompt_weighting as tlpw
 from minsdtf_tpu_torch.text import tokenizer as ttok
 from minsdtf_tpu_torch.weights.from_jax import from_jax
-from torch_port_utils import write_merges
+from torch_port_utils import JAX_SCHEDULERS, one_torch_thread, write_merges  # noqa: F401
 
 SMALL = dict(widths=(32, 64, 128, 128), temb_dim=128)
 
@@ -68,16 +70,23 @@ def test_prompt_weighting_matches(bpe_path, prompt):
 
 @pytest.mark.parametrize("num_steps,strength,eta", [(25, None, 0.3), (3, None, 0.3),
                                                     (10, 0.6, 0.0)])
-@pytest.mark.parametrize("tcd", [False, True])
-def test_schedule_rows_equal(num_steps, strength, eta, tcd):
-    j = jsched.build_denoise_schedule(jsched.Scheduler(active_tcd=tcd), num_steps,
+@pytest.mark.parametrize("mode", [pytest.param("ddim", id="False"),
+                                  pytest.param("tcd", id="True"),
+                                  "lcm", "dpm", "dpm_karras", "euler_a"])
+def test_schedule_rows_equal(num_steps, strength, eta, mode):
+    """Every row of every mode, bit for bit; the ids False and True are DDIM and
+    TCD, from when the test took ``active_tcd``."""
+    j = jsched.build_denoise_schedule(JAX_SCHEDULERS[mode](), num_steps,
                                       strength=strength, eta=eta)
-    t = tsched.build_denoise_schedule(tsched.Scheduler(active_tcd=tcd), num_steps,
+    t = tsched.build_denoise_schedule(tsched.make_scheduler(mode), num_steps,
                                       strength=strength, eta=eta)
     np.testing.assert_array_equal(t.timesteps, j.timesteps)
+    assert set(tsched.ROW_KEYS) == {f.name for f in dataclasses.fields(j)} - {
+        "timesteps", "active_tcd", "eta", "mode", "init_timestep"}
     for key in tsched.ROW_KEYS:
         np.testing.assert_array_equal(getattr(t, key), getattr(j, key), err_msg=key)
     assert t.init_timestep == j.init_timestep
+    assert t.mode == (j.mode or mode)
     np.testing.assert_array_equal(tsched.timestep_embedding(t.timesteps),
                                   jsched.timestep_embedding(j.timesteps))
     np.testing.assert_array_equal(tsched.timestep_embedding(t.timesteps, dim=32),

@@ -6,7 +6,9 @@ which is txt2img."""
 import numpy as np
 import pytest
 
-from torch_port_utils import assert_same_image, make_pipelines, reference_image, write_merges
+from torch_port_utils import (  # noqa: F401 (one_torch_thread)
+    assert_same_image, make_pipelines, one_torch_thread, reference_image, write_merges,
+)
 
 
 @pytest.fixture(scope="module")

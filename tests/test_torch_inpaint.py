@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 
 from minsdtf_tpu_torch import imaging
-from torch_port_utils import (
-    assert_same_image, disc_mask, make_pipelines, reference_image, write_merges,
+from torch_port_utils import (  # noqa: F401 (one_torch_thread)
+    assert_same_image, disc_mask, make_pipelines, one_torch_thread, reference_image, write_merges,
 )
 
 

@@ -13,7 +13,7 @@ from minsdtf_tpu.models import unet as junet
 from minsdtf_tpu.models import vae as jvae
 from minsdtf_tpu_torch.models import unet as tunet
 from minsdtf_tpu_torch.models import vae as tvae
-from torch_port_utils import load, perturb_norms
+from torch_port_utils import load, one_torch_thread, perturb_norms  # noqa: F401
 
 MODULE_TOL = 1e-4
 SMALL = dict(widths=(32, 64, 128, 128), temb_dim=128)

@@ -15,6 +15,7 @@ from minsdtf_tpu.ops import flash_attention as jfa
 from minsdtf_tpu_torch.ops import attention as tattn
 from minsdtf_tpu_torch.ops import basic as tb
 from minsdtf_tpu_torch.ops import flash_attention as tfa
+from torch_port_utils import one_torch_thread  # noqa: F401
 
 OPS_TOL = 1e-5
 ATTN_TOL = 2e-5

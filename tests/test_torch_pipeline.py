@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from minsdtf_tpu_torch import StableDiffusion
-from torch_port_utils import assert_same_image, make_pipelines, write_merges
+from torch_port_utils import (  # noqa: F401 (one_torch_thread)
+    assert_same_image, make_pipelines, one_torch_thread, write_merges,
+)
 
 PORT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "minsdtf_tpu_torch")

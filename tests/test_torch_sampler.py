@@ -12,7 +12,7 @@ from minsdtf_tpu.models import unet as junet
 from minsdtf_tpu_torch import sampler as tsampler
 from minsdtf_tpu_torch import scheduler as tsched
 from minsdtf_tpu_torch.models import unet as tunet
-from torch_port_utils import load
+from torch_port_utils import load, one_torch_thread  # noqa: F401
 
 MODULE_TOL = 1e-4
 LATENT_TOL = 5e-5

@@ -10,7 +10,7 @@ import torch
 from minsdtf_tpu.models import vae as jvae
 from minsdtf_tpu_torch.models import vae as tvae
 from minsdtf_tpu_torch.weights.from_jax import split_vae
-from torch_port_utils import load, perturb_norms
+from torch_port_utils import load, one_torch_thread, perturb_norms  # noqa: F401
 
 MODULE_TOL = 1e-4
 ENC = (32, 32, 64, 64)

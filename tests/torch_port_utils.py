@@ -8,8 +8,10 @@ import gzip
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
+from minsdtf_tpu import scheduler as jsched
 from minsdtf_tpu.models import clip as jclip
 from minsdtf_tpu.models import controlnet as jcontrolnet
 from minsdtf_tpu.models import unet as junet
@@ -28,6 +30,15 @@ UNET = dict(widths=(320, 64, 128, 128), temb_dim=128)
 VAE_ENC = (32, 32, 64, 64)
 VAE_DEC = (64, 64, 32, 32)
 LATENT_TOL = 1e-4
+# the JAX pipeline's scheduler for each mode (minsdtf_tpu/pipeline.py)
+JAX_SCHEDULERS = {
+    "ddim": lambda: jsched.Scheduler(active_tcd=False),
+    "tcd": lambda: jsched.Scheduler(active_tcd=True),
+    "lcm": jsched.LCMScheduler,
+    "dpm": jsched.DPMSolverScheduler,
+    "dpm_karras": lambda: jsched.DPMSolverScheduler(karras_sigmas=True),
+    "euler_a": jsched.EulerAncestralScheduler,
+}
 
 # enough merges for the test prompts to form multi-character tokens
 MERGES = [
@@ -35,6 +46,18 @@ MERGES = [
     "worl d</w>", "t h", "th e</w>", "c a", "ca t</w>", "d o", "do g</w>",
     "s t", "st a", "sta r</w>", "* *", "1 2", "Ã ©",
 ]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread for a test module that imports this fixture. The suite
+    runs in several workers beside JAX, whose thread pools keep the cores busy,
+    and torch's OpenMP regions then wait on threads that are not running: a 3-step
+    64px image took 28 s on 8 threads against 2.7 s on one under such load."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def write_merges(path) -> str:
@@ -87,11 +110,37 @@ def make_pipelines(bpe_path, size: int = 64, controlnet: bool = False):
     return jpipe, pipe
 
 
-def assert_same_image(got, want, size: int = 64):
+def with_settings(pipelines, **kw):
+    """The JAX and port pipelines built anew with the constructor arguments ``kw``
+    (``scheduler_type``, ``prediction_type``, ...), holding the params and modules
+    of ``pipelines``."""
+    jpipe, pipe = pipelines
+    size = pipe.img_height
+    j = JaxStableDiffusion(size, size, compute_dtype=jnp.float32, bpe_path=jpipe.bpe_path, **kw)
+    for name in ("_unet_params", "_vae_params", "_text_params", "_controlnet_params"):
+        setattr(j, name, getattr(jpipe, name))
+    t = StableDiffusion(size, size, bpe_path=pipe.bpe_path, compute_dtype=torch.float32,
+                        device="cpu", **kw)
+    for name in ("_unet", "_encoder", "_decoder", "_text_model", "_controlnet"):
+        setattr(t, name, getattr(pipe, name))
+    return j, t
+
+
+def jax_step_noise(seed, shape) -> torch.Tensor:
+    """The JAX pipeline's per-step noise for ``seed``, in the port's
+    ``draw_step_noise`` form: step i draws
+    ``normal(fold_in(fold_in(PRNGKey(seed), 1), i), shape[1:])``."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 1)
+    steps = [np.asarray(jax.random.normal(jax.random.fold_in(key, np.uint32(i)), tuple(shape[1:]),
+                                          jnp.float32)) for i in range(shape[0])]
+    return torch.from_numpy(np.stack(steps))
+
+
+def assert_same_image(got, want, size: int = 64, batch: int = 1):
     """``(image, latent)`` pairs: the same uint8 image shape, the latents within
     ``LATENT_TOL`` and the images within 1."""
     (img, lat), (want_img, want_lat) = got, want
-    assert img.shape == want_img.shape == (1, size, size, 3) and img.dtype == np.uint8
+    assert img.shape == want_img.shape == (batch, size, size, 3) and img.dtype == np.uint8
     np.testing.assert_allclose(lat, want_lat, rtol=LATENT_TOL, atol=LATENT_TOL)
     assert np.abs(img.astype(int) - want_img.astype(int)).max() <= 1
 
