@@ -18,6 +18,15 @@ device time by kernel group and the device's busy share (the full tables by
 kernel go to ``chiprun_out/chip_smoke/profile.txt``, ``profile_1024.txt``,
 ``profile_controlnet.txt``, ``profile_img2img.txt`` and ``profile_tcd_b8.txt``).
 
+Then it loads weights from files written from the same seeds, under
+``build/chip_smoke_ckpt/`` (removed at the end; about 5.8 GB of checkpoints and
+5.7 GB of converted-weights caches): a fp32 single-file LDM checkpoint (8a), a
+``control_model.*`` ControlNet ``.pth`` (8b) and a kohya LoRA over every module
+its rewrite tables reach (8c). The loaded tensors must equal the random
+pipeline's bit for bit and give its images exactly; the LoRA-merged weights must
+equal the script's own fp32 merge, and ``set_lora(None)`` must give 8a's image
+back.
+
 Exits non-zero on any failure, when no card is visible, or when the port's package
 is not beside this file. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel with its
@@ -34,10 +43,12 @@ from __future__ import annotations
 import gzip
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -543,18 +554,25 @@ def with_settings(pipe, **kw):
 
 
 def write_safetensors(path: str, tensors) -> str:
-    """``{key: fp32 numpy array}`` as a .safetensors file: an 8-byte header
-    length, the JSON header, the raw little-endian data."""
-    header, blobs, offset = {}, [], 0
+    """``{key: fp32 numpy array or tensor}`` as a .safetensors file: an 8-byte
+    header length, the JSON header padded with spaces to 8 bytes (so the fp32 data
+    is aligned, as the ``safetensors`` package writes it), the raw little-endian
+    data. Written one tensor at a time: a tensor on the card is copied to the host
+    alone."""
+    header, offset = {}, 0
     for key, a in tensors.items():
-        raw = np.ascontiguousarray(a, "<f4").tobytes()
+        nbytes = 4 * int(np.prod(tuple(a.shape)))
         header[key] = {"dtype": "F32", "shape": list(a.shape),
-                       "data_offsets": [offset, offset + len(raw)]}
-        blobs.append(raw)
-        offset += len(raw)
+                       "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
     head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
     with open(path, "wb") as f:
-        f.write(len(head).to_bytes(8, "little") + head + b"".join(blobs))
+        f.write(len(head).to_bytes(8, "little") + head)
+        for a in tensors.values():
+            if isinstance(a, torch.Tensor):
+                a = a.detach().float().cpu().numpy()
+            f.write(memoryview(np.ascontiguousarray(a, "<f4")).cast("B"))
     return path
 
 
@@ -635,11 +653,12 @@ def _kernel_group(name: str) -> str:
 def phase_profile(generate, s_per_img: float, label: str, filename: str):
     """One more warm image, ``generate()``, under torch.profiler: device time by
     kernel name and by group, and the device's busy share of the unprofiled wall
-    time."""
+    time. Only CUDA activity is recorded: the host's events cost most of the
+    profiler's processing time and no number here reads them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         generate()
         torch.cuda.synchronize()
@@ -669,6 +688,366 @@ def phase_profile(generate, s_per_img: float, label: str, filename: str):
         log(f"  group {group}: {t:.3f} ms, {n} launches, {t / busy_ms:.4f} of device time")
     for name, (t, n) in rows[:15]:
         log(f"  {t:9.3f} ms {n:5d}  {name[:110]}")
+
+
+# ---- phases 8a-8c: checkpoint and LoRA files ------------------------------------
+
+
+def rss_gb() -> float:
+    """This process's resident set (``VmRSS``), GB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class PeakRss:
+    """The largest :func:`rss_gb` seen while the block runs, sampled every 5 ms by a
+    thread: the process's own peak (``VmHWM``) may come from an earlier phase."""
+
+    def __enter__(self):
+        self.before = self.peak = rss_gb()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, rss_gb())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_gb())
+
+
+def ldm_state(state, kind: str):
+    """The port's ``state_dict`` of ``kind`` under the public single-file names,
+    by inverting the port's maps: ``model.diffusion_model.*`` (UNet),
+    ``cond_stage_model.transformer.text_model.*`` (CLIP), ``first_stage_model.*``
+    with the attention as (c, c, 1, 1) convs (VAE), ``control_model.*``
+    (lllyasviel's ControlNet)."""
+    from minsdtf_tpu_torch.weights import mapping
+
+    maps = {"unet": (mapping.unet_ldm_to_diffusers(), ""),
+            "controlnet": (mapping.controlnet_ldm_to_diffusers(), ""),
+            "vae": (mapping.vae_ldm_to_diffusers(), mapping.VAE_LDM_PREFIX),
+            "text_encoder": ({}, mapping.TEXT_ENCODER_LDM_PREFIX)}
+    module_map, prefix = maps[kind]
+    inverse = {v: k for k, v in module_map.items()}
+    out = {}
+    for key, value in state.items():
+        module, _, leaf = key.rpartition(".")
+        if kind == "vae" and value.dim() == 2:
+            value = value[:, :, None, None]
+        out[f"{prefix}{inverse.get(module, module)}.{leaf}"] = value
+    return out
+
+
+def seeded_fp32_modules(device):
+    """The random pipeline's modules before fusion and the cast: fp32 on
+    ``device``, from the same seeds."""
+    from minsdtf_tpu_torch.models import clip as clip_lib
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.models import vae as vae_lib
+
+    return {"unet": unet_lib.init(device, seed=0), "text_encoder": clip_lib.init(device, seed=1),
+            "decoder": vae_lib.init_decoder(device, seed=2),
+            "encoder": vae_lib.init_encoder(device, seed=4)}
+
+
+def checkpoint_pipeline(bpe: str, size: int, device, **kw):
+    from minsdtf_tpu_torch import StableDiffusion
+
+    return StableDiffusion(size, size, bpe_path=bpe, device=device, **kw)
+
+
+def same_modules(got, want, names) -> dict:
+    """``{name: every tensor of got.name equal to want.name's, bit for bit}``."""
+    out = {}
+    for name in names:
+        a, b = getattr(got, name).state_dict(), getattr(want, name).state_dict()
+        out[name] = a.keys() == b.keys() and all(
+            a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+    return out
+
+
+MODULES = ("unet", "text_model", "decoder", "encoder")
+
+
+def phase_checkpoint(pipe, bpe: str, directory: str):
+    """8a: the seeded fp32 UNet, CLIP, decoder and encoder as one fp32 LDM
+    single-file checkpoint; the cold conversion (caches deleted first), the load
+    from the caches to the first image, every loaded tensor bit for bit against
+    ``pipe``'s, and the 512px image against ``pipe``'s. Returns (passed,
+    launches, the checkpoint's path, (the cached pipeline's first image,
+    ``pipe``'s image), numbers): a pipeline's first image differs from its later
+    ones where the first context does (see the log)."""
+    from minsdtf_tpu_torch.weights import convert
+
+    size, device = pipe.img_height, pipe.device
+    usage = shutil.disk_usage(directory)
+    log(f"phase 8a: {usage.free / 1e9:.3f} GB free of {usage.total / 1e9:.3f} GB on the disk "
+        f"of {directory}; the group writes about 5.8 GB of checkpoints and 5.7 GB of caches")
+    modules = seeded_fp32_modules(device)
+    state = {**ldm_state(modules["unet"].state_dict(), "unet"),
+             **ldm_state(modules["text_encoder"].state_dict(), "text_encoder"),
+             **ldm_state({**modules["encoder"].state_dict(), **modules["decoder"].state_dict()},
+                         "vae")}
+    path = os.path.join(directory, "sd15-ldm-fp32.safetensors")
+    t0 = time.perf_counter()
+    write_safetensors(path, state)
+    log(f"phase 8a: wrote {len(state)} tensors, {os.path.getsize(path) / 1e9:.3f} GB, in "
+        f"{time.perf_counter() - t0:.3f} s")
+    del state, modules
+    torch.cuda.empty_cache()
+
+    files = dict(unet_ckpt=path, text_encoder_ckpt=path, vae_ckpt=path)
+    for kind in ("unet", "text_encoder", "vae"):
+        if os.path.exists(convert.cache_path(path, kind)):
+            os.remove(convert.cache_path(path, kind))
+    torch.cuda.reset_peak_memory_stats()
+    with PeakRss() as rss:
+        t0 = time.perf_counter()
+        cold = checkpoint_pipeline(bpe, size, device, **files)
+        for name in MODULES:
+            getattr(cold, name)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+    cold_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # a pipeline's first prompt is encoded with the unconditional row in the same
+    # batch (B = 2), later ones alone (B = 1): the same rows, other GEMM shapes
+    first_ctx, later_ctx = cold.encode_text(PROMPT), cold.encode_text(PROMPT)
+    log(f"phase 8a: a pipeline's first context (encoded beside the unconditional row) equals "
+        f"its second bit for bit: {bool(np.array_equal(first_ctx, later_ctx))}, max |diff| "
+        f"{float(np.abs(first_ctx - later_ctx).max()):.3e}")
+    log(f"phase 8a cold conversion: {cold_s:.3f} s for the UNet, CLIP, decoder and encoder "
+        f"(caches written: {sum(os.path.exists(convert.cache_path(path, k)) for k in ('unet', 'text_encoder', 'vae'))} of 3); "
+        f"host RSS {rss.before:.3f} GB before, peak {rss.peak:.3f} GB while loading; peak "
+        f"device memory {cold_peak_gb:.3f} GB")
+    del cold
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    loaded = checkpoint_pipeline(bpe, size, device, **files)
+    first_image = txt2img(loaded)()
+    torch.cuda.synchronize()
+    first_image_s = time.perf_counter() - t0
+    for name in MODULES:  # the encoder is loaded for the comparison, after the timing
+        getattr(loaded, name)
+    log(f"phase 8a from the caches: {first_image_s:.3f} s from the constructor to the first "
+        f"{size}px image")
+
+    want, again = txt2img(pipe)(), txt2img(pipe)()
+    deterministic = bool(np.array_equal(want, again))
+    log(f"phase 8a: two calls of the random pipeline give equal images: {deterministic}")
+    equal = same_modules(loaded, pipe, MODULES)
+    log(f"phase 8a: loaded tensors equal the random pipeline's bit for bit: {equal}")
+    ok, launches, *_ = run_phase(
+        "phase 8a checkpoint txt2img", txt2img(loaded), size, 1, {"onepass": 250, "online": 1},
+        lambda image: {"two calls of the random pipeline equal": deterministic,
+                       **{f"{name} bit-equal": v for name, v in equal.items()},
+                       "image equals the random pipeline's": bool(np.array_equal(image, want))})
+    numbers = {"cold_conversion_s": cold_s, "cached_first_image_s": first_image_s,
+               "load_peak_rss_gb": rss.peak, "rss_before_load_gb": rss.before,
+               "load_peak_device_gb": cold_peak_gb, "checkpoint_gb": os.path.getsize(path) / 1e9}
+    return ok, launches, path, (first_image, want), numbers
+
+
+def phase_controlnet_pth(pipe, bpe: str, directory: str, controlnet_generate):
+    """8b: the seed-3 ControlNet as a fp32 ``.pth`` in lllyasviel's
+    ``control_model.*`` layout with a few ``model.diffusion_model.*`` keys beside
+    it, loaded through ``controlnet_path`` by a pipeline holding ``pipe``'s other
+    modules; its weights and its ControlNet txt2img image against phase 5e's
+    (``pipe`` with the ControlNet assigned). Returns (passed, launches, numbers)."""
+    from minsdtf_tpu_torch.models import controlnet as controlnet_lib
+    from minsdtf_tpu_torch.weights import convert
+
+    size, device = pipe.img_height, pipe.device
+    gen = torch.Generator().manual_seed(3)
+    state = {k: v.cpu() for k, v in ldm_state(
+        controlnet_lib.init(device, seed=3).state_dict(), "controlnet").items()}
+    for name, shape in (("time_embed.0.weight", (1280, 320)), ("time_embed.0.bias", (1280,)),
+                        ("input_blocks.0.0.weight", (320, 4, 3, 3)), ("out.2.bias", (4,))):
+        state[f"model.diffusion_model.{name}"] = torch.randn(shape, generator=gen)
+    path = os.path.join(directory, "control_sd15_seed3.pth")
+    torch.save(state, path)
+    del state
+    log(f"phase 8b: wrote {path}, {os.path.getsize(path) / 1e9:.3f} GB")
+
+    cpipe = checkpoint_pipeline(bpe, size, device, controlnet_path=path)
+    for name in ("_unet", "_text_model", "_decoder", "_encoder", "_tokenizer"):
+        setattr(cpipe, name, getattr(pipe, name))
+    t0 = time.perf_counter()
+    cpipe.controlnet
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    equal = same_modules(cpipe, pipe, ("controlnet",))["controlnet"]
+    log(f"phase 8b: ControlNet converted and loaded in {load_s:.3f} s; its tensors equal the "
+        f"assigned one's bit for bit: {equal}")
+    want = controlnet_generate()
+    _, _, edges = synthetic_inputs(size)
+    ok, launches, *_ = run_phase(
+        "phase 8b ControlNet .pth txt2img", lambda **kw: cpipe.text_to_image(
+            PROMPT, control_net_image=edges, num_steps=25, unconditional_guidance_scale=7.5,
+            seed=1234, **kw), size, 1, {"onepass": 350, "online": 1},
+        lambda image: {"ControlNet bit-equal": equal,
+                       "image equals phase 5e's": bool(np.array_equal(image, want))})
+    os.remove(path)
+    os.remove(convert.cache_path(path, "controlnet"))
+    return ok, launches, {"controlnet_load_s": load_s}
+
+
+LORA_RANK, LORA_ALPHA = 8, 4.0
+# the module names that the kohya rewrite tables produce
+LORA_UNET_TAILS = ("to_q", "to_k", "to_v", "to_out.0", "proj_in", "proj_out", "ff.net.0.proj",
+                   "ff.net.2", "time_emb_proj", "conv1", "conv2", "conv_shortcut",
+                   "downsamplers.0.conv", "upsamplers.0.conv")
+LORA_TEXT_TAILS = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
+
+
+def lora_factors(modules, device, seed: int = 9):
+    """Kohya factors (rank 8, alpha 4) for every conv and dense module of the fp32
+    ``modules`` that the rewrite tables reach, and the fp32 deltas the script
+    builds from them on the card: ``{diffusers weight key: delta}`` per model,
+    and the kohya ``state_dict``. The factors are multiples of 1/256 up to 1/32,
+    so every product and sum in a delta is exact in fp32 whatever the order:
+    the merged weights can be compared exactly."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    kohya, deltas = {}, {}
+    for kind, prefix, tails in (("unet", "lora_unet_", LORA_UNET_TAILS),
+                                ("text_encoder", "lora_te_", LORA_TEXT_TAILS)):
+        deltas[kind] = {}
+        for name, m in modules[kind].named_modules():
+            if not isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)) or not name.endswith(tails):
+                continue
+            w = m.weight
+            kernel = tuple(w.shape[2:])
+            down = torch.randint(-8, 9, (LORA_RANK, w.shape[1], *kernel), generator=gen,
+                                 device=device).float() / 256
+            up = torch.randint(-8, 9, (w.shape[0], LORA_RANK, *((1, 1) if kernel else ())),
+                               generator=gen, device=device).float() / 256
+            if kernel:
+                delta = torch.einsum("or,rihw->oihw", up[:, :, 0, 0], down)
+            else:
+                delta = up @ down
+            deltas[kind][f"{name}.weight"] = delta * (LORA_ALPHA / LORA_RANK)
+            key = prefix + name.replace(".", "_")
+            kohya[f"{key}.lora_down.weight"] = down
+            kohya[f"{key}.lora_up.weight"] = up
+            kohya[f"{key}.alpha"] = torch.tensor([LORA_ALPHA])
+    return kohya, deltas
+
+
+def merged_weights_equal(model, base, deltas, scale: float, dtype) -> list:
+    """The keys of ``model`` (fused, cast) that differ from ``base`` (fp32, unfused)
+    with ``scale * deltas`` added in fp32 and its conv / dense / embedding weights
+    cast to ``dtype``; a fused ``to_qkv`` / ``to_kv`` is compared third by third
+    (half by half). Returns the keys that differ."""
+    kernels = {f"{n}.weight" for n, m in base.named_modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear, torch.nn.Embedding))}
+    want = dict(base.state_dict())
+    for key, delta in deltas.items():
+        want[key] = want[key] + scale * delta.reshape(want[key].shape)
+    bad = []
+    for key, value in model.state_dict().items():
+        stem, _, proj = key.rpartition(".")[0].rpartition(".")
+        parts = {"to_qkv": ("to_q", "to_k", "to_v"), "to_kv": ("to_k", "to_v")}.get(proj)
+        names = [f"{stem}.{p}.weight" for p in parts] if parts else [key]
+        for name, chunk in zip(names, value.chunk(len(names))):
+            expect = want[name].to(dtype) if name in kernels else want[name]
+            if chunk.dtype != expect.dtype or not torch.equal(chunk, expect):
+                bad.append(name)
+    return bad
+
+
+def phase_lora(pipe, bpe: str, directory: str, path: str, want_images):
+    """8c: a kohya LoRA over every module the rewrite tables reach, loaded with
+    8a's checkpoint through ``lora_path``; every merged weight against the
+    script's own fp32 merge, the image against 8a's, then ``set_lora(path, 0.5)``
+    and ``set_lora(None)``, whose first and second images must equal 8a's
+    (``want_images``: a fresh pipeline's first image and a later one). Returns
+    (passed, launches, numbers)."""
+    want_first, want_base = want_images
+    size, device = pipe.img_height, pipe.device
+    base = seeded_fp32_modules(device)
+    kohya, deltas = lora_factors(base, device)
+    lora_path = write_safetensors(os.path.join(directory, "lora-r8.safetensors"), kohya)
+    log(f"phase 8c: wrote a rank-{LORA_RANK} LoRA over {len(deltas['unet'])} UNet and "
+        f"{len(deltas['text_encoder'])} CLIP modules, {os.path.getsize(lora_path) / 1e6:.3f} MB")
+    files = dict(unet_ckpt=path, text_encoder_ckpt=path, vae_ckpt=path)
+
+    def check_weights(lpipe, scale):
+        """``scale`` None: the base weights, no delta."""
+        bad = {kind: merged_weights_equal(model, base[kind], deltas[kind] if scale else {},
+                                          scale, lpipe.compute_dtype)
+               for kind, model in (("unet", lpipe.unet), ("text_encoder", lpipe.text_model))}
+        log(f"phase 8c: at scale {scale}, weights that differ from the script's merge: "
+            f"{ {k: (len(v), v[:4]) for k, v in bad.items()} }")
+        return not any(bad.values())
+
+    t0 = time.perf_counter()
+    lpipe = checkpoint_pipeline(bpe, size, device, lora_path=lora_path, **files)
+    first = txt2img(lpipe)()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    log(f"phase 8c: {first_s:.3f} s from the constructor with lora_path to the first image")
+    merged_ok = check_weights(lpipe, 1.0)
+    ok, launches, *_ = run_phase(
+        "phase 8c LoRA txt2img", txt2img(lpipe), size, 1, {"onepass": 250, "online": 1},
+        lambda image: {"merged weights equal the script's": merged_ok,
+                       "image differs from 8a's": bool((image != want_base).any())})
+    numbers = {"lora_first_image_s": first_s}
+    checks = {}
+    for scale in (0.5, None):
+        t0 = time.perf_counter()
+        lpipe.set_lora(None if scale is None else lora_path, **({} if scale is None
+                                                               else {"scale": scale}))
+        set_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        image = txt2img(lpipe)()
+        torch.cuda.synchronize()
+        image_s = time.perf_counter() - t0
+        label = "none" if scale is None else str(scale)
+        numbers[f"set_lora_{label}_s"], numbers[f"set_lora_{label}_first_image_s"] = set_s, image_s
+        log(f"phase 8c set_lora({'None' if scale is None else f'path, {scale}'}): {set_s:.3f} s, "
+            f"then {image_s:.3f} s to the first image")
+        if scale is None:
+            checks["set_lora(None): the first image equals 8a's first"] = bool(
+                np.array_equal(image, want_first))
+            checks["set_lora(None): the second image equals 8a's"] = bool(
+                np.array_equal(txt2img(lpipe)(), want_base))
+            checks["set_lora(None) weights equal the base"] = check_weights(lpipe, None)
+        else:
+            checks["set_lora(0.5) weights equal base + 0.5 delta"] = check_weights(lpipe, scale)
+            checks["set_lora(0.5) image differs from scale 1's"] = bool((image != first).any())
+    log(f"phase 8c checks: {checks}")
+    return ok and all(checks.values()), launches, numbers
+
+
+def phase_checkpoints(pipe, bpe: str, controlnet_generate):
+    """Phases 8a-8c in ``build/chip_smoke_ckpt/`` (gitignored), removed at the
+    end. Returns ({path: launches}, numbers), or None if a phase failed."""
+    directory = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    os.makedirs(directory, exist_ok=True)
+    try:
+        ok, launches_ckpt, path, want_images, numbers = phase_checkpoint(pipe, bpe, directory)
+        if not ok:
+            return None
+        ok, launches_pth, more = phase_controlnet_pth(pipe, bpe, directory, controlnet_generate)
+        numbers.update(more)
+        if not ok:
+            return None
+        ok, launches_lora, more = phase_lora(pipe, bpe, directory, path, want_images)
+        numbers.update(more)
+        if not ok:
+            return None
+    finally:
+        shutil.rmtree(directory)
+    return ({"ckpt": launches_ckpt, "controlnet_pth": launches_pth, "lora": launches_lora},
+            numbers)
 
 
 def main() -> int:
@@ -730,6 +1109,12 @@ def main() -> int:
         _, _, warm, _, generate = samplers["tcd_b8"]
         phase_profile(generate, 8 * statistics.median(warm), "phase 7e TCD batch 8",
                       "profile_tcd_b8.txt")
+        mark("phases 7-7e")
+        checkpoints = phase_checkpoints(pipe, bpe, new_paths["controlnet"][-1])
+        if checkpoints is None:
+            return 1
+        ckpt_launches, ckpt_numbers = checkpoints
+        mark("phases 8a-8c")
     new_paths.update(samplers)
 
     rows = []
@@ -741,6 +1126,7 @@ def main() -> int:
                      "replaces": f"minsdtf_tpu/ops/flash_attention.py:{line}",
                      "launches": launches[name], "launches_1024px": launches_1024[name],
                      **{f"launches_{path}": r[1][name] for path, r in new_paths.items()},
+                     **{f"launches_{path}": n[name] for path, n in ckpt_launches.items()},
                      "max_abs_err": errors[name],
                      **{k: main_shape[k] for k in ("ms", "loop_ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms", "shape")},
@@ -752,7 +1138,7 @@ def main() -> int:
                    **{f"{key}_{path}": value for path, (_, _, warm, peak, _) in new_paths.items()
                       for key, value in (("s_per_img", statistics.median(warm)),
                                          ("s_per_img_samples", warm), ("peak_gb", peak))},
-                   "kernels": rows}, f, indent=1)
+                   "checkpoints": ckpt_numbers, "kernels": rows}, f, indent=1)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

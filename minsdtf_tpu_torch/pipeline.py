@@ -20,17 +20,34 @@ reference back outside the mask, in the latent each step and in the image at the
 end. ``control_net_image`` runs the ControlNet before each UNet call. Images and
 masks are numpy arrays (a path string needs PIL).
 
-No checkpoint loading yet: the weights are random, made on the target device from
-fixed seeds, and a ControlNet must be assigned to ``_controlnet``.
-``compute_dtype`` is bf16 on CUDA unless fp32 is asked for.
+Weights: ``unet_ckpt``, ``text_encoder_ckpt``, ``vae_ckpt`` and ``controlnet_path``
+take a checkpoint file (LDM single-file or diffusers layout, ``.safetensors`` or a
+torch pickle; lllyasviel's ``control_model.*`` ``.pth`` for the ControlNet), a URL
+or ``"default"`` (:mod:`weights.fetch`). Each converts once into a cache beside the
+file (:func:`weights.convert.convert_cached`). ``lora_path`` merges a kohya LoRA
+into the UNet and the text encoder, and :meth:`StableDiffusion.set_lora` switches
+it at run time. Without a checkpoint a module is random, made on the target
+device from a fixed seed; without ``controlnet_path`` a ControlNet may be assigned
+to ``_controlnet``. Two differences from the JAX pipeline change what raises and
+never a result: a ``lora_path`` that does not exist raises ``FileNotFoundError``,
+and a LoRA whose deltas reach a module without a checkpoint raises
+``ValueError``. ``compute_dtype`` is bf16 on CUDA unless fp32 is asked for.
+
+The reference-compatible handles (``diffusion_model``, ``text_clip_embedding``,
+``text_encoder``, ``image_encoder``, ``image_decoder``, ``hint_net``,
+``control_net``) take and return numpy arrays in the JAX package's layouts (NHWC
+latents, images, hints and ControlNet residuals) through ``predict_on_batch`` or a
+call, and run on the pipeline's device.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+import os
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from minsdtf_tpu_torch import imaging
 from minsdtf_tpu_torch import rng as rng_lib
@@ -40,10 +57,11 @@ from minsdtf_tpu_torch.models import clip as clip_lib
 from minsdtf_tpu_torch.models import controlnet as controlnet_lib
 from minsdtf_tpu_torch.models import unet as unet_lib
 from minsdtf_tpu_torch.models import vae as vae_lib
-from minsdtf_tpu_torch.models.common import cast_weights_
+from minsdtf_tpu_torch.models.common import build, cast_weights_
 from minsdtf_tpu_torch.text import prompt_weighting as lpw
 from minsdtf_tpu_torch.text.tokenizer import ClipTokenizer
-from minsdtf_tpu_torch.weights import textual_inversion
+from minsdtf_tpu_torch.weights import convert, fetch, textual_inversion
+from minsdtf_tpu_torch.weights import lora as lora_lib
 
 MAX_PROMPT_LENGTH = 77
 PAD_TOKEN_ID = 49407
@@ -54,6 +72,13 @@ def draw_step_noise(seed: int, shape: Sequence[int]) -> torch.Tensor:
     from a CPU generator seeded with ``seed``: the same on every device."""
     gen = torch.Generator().manual_seed(int(seed))
     return torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+
+
+def _existing(path, kind: str) -> str:
+    """``path`` as a string; ``FileNotFoundError`` where no file is there."""
+    if not os.path.exists(str(path)):
+        raise FileNotFoundError(f"{kind}: no such file: {path}")
+    return str(path)
 
 
 def resolve_device(device) -> torch.device:
@@ -72,12 +97,17 @@ class StableDiffusion:
         self,
         img_height: int = 512,
         img_width: int = 512,
+        jit_compile: bool = True,  # accepted for parity with the JAX pipeline; no effect
         clip_skip: int = -1,
+        unet_ckpt: Optional[str] = None,
+        text_encoder_ckpt: Optional[str] = None,
+        vae_ckpt: Optional[str] = None,
+        lora_path: Optional[str] = None,
+        controlnet_path: Optional[str] = None,
+        active_tcd: bool = False,
         bpe_path: Optional[str] = None,
         compute_dtype: Optional[torch.dtype] = None,
         device=None,
-        controlnet_path: Optional[str] = None,
-        active_tcd: bool = False,
         scheduler_type: Optional[str] = None,
         prediction_type: str = "epsilon",
     ):
@@ -93,9 +123,6 @@ class StableDiffusion:
             raise ValueError(
                 f"prediction_type must be 'epsilon' or 'v', got {prediction_type!r}")
         self.prediction_type = prediction_type
-        if controlnet_path is not None:
-            raise NotImplementedError("checkpoint loading is not ported yet; assign a "
-                                      "ControlNet module to `_controlnet`")
         self.device = resolve_device(device)
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
@@ -104,6 +131,12 @@ class StableDiffusion:
         self.scheduler = sched_lib.make_scheduler(scheduler_type, active_tcd)
         self.scheduler_type = scheduler_type or ("tcd" if active_tcd else "ddim")
         self.active_tcd = self.scheduler.active_tcd
+        self.unet_ckpt = unet_ckpt
+        self.text_encoder_ckpt = text_encoder_ckpt
+        self.vae_ckpt = vae_ckpt
+        self.controlnet_path = controlnet_path
+        self.text_encoder_lora = None
+        self.unet_lora = None
         self._unet = None
         self._text_model = None
         self._decoder = None
@@ -111,41 +144,93 @@ class StableDiffusion:
         self._controlnet = None
         self._tokenizer = None
         self._uncond = None
+        if lora_path is not None:
+            self.set_lora(lora_path)
+
+    def set_lora(self, lora_path: Optional[str], scale: float = 1.0) -> None:
+        """Switch the active LoRA at run time: the UNet, the text encoder and the
+        cached unconditional context are dropped, and the next use re-derives them
+        from the cached base checkpoints with the new deltas, times ``scale``,
+        merged. ``None`` removes the LoRA."""
+        te = unet = None
+        if lora_path is not None:
+            te, unet = lora_lib.load_lora(_existing(lora_path, "lora"))
+            te, unet = lora_lib.scale_lora(te, scale), lora_lib.scale_lora(unet, scale)
+            for deltas, ckpt, kind in ((te, self.text_encoder_ckpt, "text_encoder"),
+                                       (unet, self.unet_ckpt, "unet")):
+                if deltas and ckpt is None:
+                    raise ValueError(f"the LoRA has {len(deltas)} {kind} deltas but there is "
+                                     f"no {kind} checkpoint to merge them into")
+        self.text_encoder_lora, self.unet_lora = te or None, unet or None  # {} merges nothing
+        self._unet = None
+        self._text_model = None
+        self._uncond = None
 
     # ---- lazy models ------------------------------------------------------------
+
+    def _checkpoint(self, path, kind: str, lora=None):
+        """The converted fp32 ``state_dict`` (a pair for the VAE) of the checkpoint
+        at ``path`` with ``lora`` merged; a URL or "default" is fetched first."""
+        if not os.path.exists(str(path)):
+            try:
+                path = fetch.resolve(path, kind)
+            except Exception as e:
+                raise FileNotFoundError(f"{kind}: cannot fetch {path}: {e}") from e
+        return convert.convert_cached(kind, _existing(path, kind), lora=lora)
+
+    def _load_or_init(self, path, kind: str, factory: Callable[[], nn.Module], seed: int,
+                      lora=None, part: Optional[int] = None, fuse: bool = False) -> nn.Module:
+        """``factory()`` on the device, in eval mode, holding the weights of the
+        checkpoint at ``path`` (``part`` of the VAE's pair, ``lora`` merged), or
+        without a path random ones from ``seed`` (:func:`models.common.build`):
+        fp32 first, then the attention projections fused when ``fuse``, then cast
+        to the compute dtype."""
+        if path is None:
+            model = build(factory, self.device, seed)
+        else:
+            state = self._checkpoint(path, kind, lora)
+            with torch.device("meta"):
+                model = factory()
+            model.load_state_dict(state if part is None else state[part], assign=True)
+            model = model.to(self.device)
+        if fuse:
+            model = unet_lib.fuse_attention_projections(model)
+        return cast_weights_(model, self.compute_dtype).eval()
 
     @property
     def unet(self) -> unet_lib.UNet:
         if self._unet is None:
-            unet = unet_lib.fuse_attention_projections(unet_lib.init(self.device, seed=0))
-            self._unet = cast_weights_(unet, self.compute_dtype).eval()
+            self._unet = self._load_or_init(self.unet_ckpt, "unet", unet_lib.UNet, 0,
+                                            lora=self.unet_lora, fuse=True)
         return self._unet
 
     @property
     def text_model(self) -> clip_lib.CLIPTextModel:
         if self._text_model is None:
-            model = clip_lib.init(self.device, seed=1)
-            self._text_model = cast_weights_(model, self.compute_dtype).eval()
+            self._text_model = self._load_or_init(self.text_encoder_ckpt, "text_encoder",
+                                                  clip_lib.CLIPTextModel, 1,
+                                                  lora=self.text_encoder_lora)
         return self._text_model
 
     @property
     def decoder(self) -> vae_lib.VAEDecoder:
         if self._decoder is None:
-            model = vae_lib.init_decoder(self.device, seed=2)
-            self._decoder = cast_weights_(model, self.compute_dtype).eval()
+            self._decoder = self._load_or_init(self.vae_ckpt, "vae", vae_lib.VAEDecoder, 2, part=1)
         return self._decoder
 
     @property
     def encoder(self) -> vae_lib.VAEEncoder:
         if self._encoder is None:
-            model = vae_lib.init_encoder(self.device, seed=4)
-            self._encoder = cast_weights_(model, self.compute_dtype).eval()
+            self._encoder = self._load_or_init(self.vae_ckpt, "vae", vae_lib.VAEEncoder, 4, part=0)
         return self._encoder
 
     @property
     def controlnet(self) -> Optional[controlnet_lib.ControlNet]:
-        """The ControlNet assigned to ``_controlnet``, or None: without checkpoint
-        loading there is none by default."""
+        """The ControlNet of ``controlnet_path`` (fused and cast as the UNet is), or
+        the one assigned to ``_controlnet``, or None."""
+        if self._controlnet is None and self.controlnet_path is not None:
+            self._controlnet = self._load_or_init(self.controlnet_path, "controlnet",
+                                                  controlnet_lib.ControlNet, 3, fuse=True)
         return self._controlnet
 
     @property
@@ -427,3 +512,105 @@ class StableDiffusion:
         """(B, H, W, 3) in [0, 1] -> the HintNet's (B, 320, H/8, W/8), compute dtype."""
         x = torch.as_tensor(cn_img, device=self.device).to(self.compute_dtype)
         return self.controlnet.controlnet_cond_embedding(x)
+
+    # ---- reference-compatible sub-model handles -----------------------------------
+    # The JAX package exposes each sub-model as a handle with ``predict_on_batch``
+    # over numpy arrays in its layouts; these do the same on the port's modules.
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device).to(self.compute_dtype)
+
+    @property
+    def diffusion_model(self) -> "_CompatModel":
+        """``[latent (B, h, w, 4), t_emb (B, 320), context (B, S, 768), *controls]``
+        -> the UNet's output (B, h, w, 4); the 13 ControlNet residuals, if given,
+        are NHWC."""
+        unet = self.unet
+
+        @torch.inference_mode()
+        def fn(inputs):
+            latent, t_emb, context, *controls = inputs
+            controls = [self._tensor(c).permute(0, 3, 1, 2) for c in controls] or None
+            out = unet(self._tensor(latent), self._tensor(t_emb), self._tensor(context),
+                       controls=controls)
+            return out.float().cpu().numpy()
+
+        return _CompatModel(fn)
+
+    @property
+    def text_clip_embedding(self) -> "_CompatModel":
+        """``[tokens (B, S), positions]`` (positions broadcast to the tokens' shape)
+        -> the token + position embedding (B, S, 768)."""
+        model = self.text_model
+
+        @torch.inference_mode()
+        def fn(inputs):
+            tokens, positions = (torch.as_tensor(np.asarray(a, np.int64), device=self.device)
+                                 for a in inputs)
+            emb = clip_lib.clip_embedding(model, tokens, positions.expand(tokens.shape))
+            return emb.float().cpu().numpy()
+
+        return _CompatModel(fn)
+
+    @property
+    def text_encoder(self) -> "_CompatModel":
+        """The (B, S, 768) embedding -> the encoder's (B, S, 768) output at
+        ``clip_skip``, in fp32."""
+        model = self.text_model
+
+        @torch.inference_mode()
+        def fn(emb):
+            x = torch.as_tensor(np.asarray(emb, np.float32), device=self.device)
+            return clip_lib.text_encoder(model, x, self.clip_skip).cpu().numpy()
+
+        return _CompatModel(fn)
+
+    @property
+    def image_encoder(self) -> "_CompatModel":
+        """(B, H, W, 3) in [-1, 1] -> the fp32 (B, H/8, W/8, 4) latent."""
+        return _CompatModel(lambda img: self._encode_image(np.asarray(img, np.float32)))
+
+    @property
+    def image_decoder(self) -> "_CompatModel":
+        """(B, h, w, 4) latent -> the (B, 8h, 8w, 3) image in [-1, 1], fp32."""
+        decoder = self.decoder
+
+        @torch.inference_mode()
+        def fn(latent):
+            return decoder(self._tensor(latent)).float().cpu().numpy()
+
+        return _CompatModel(fn)
+
+    @property
+    def hint_net(self) -> "_CompatModel":
+        """(B, H, W, 3) in [0, 1] -> the HintNet's (B, H/8, W/8, 320) output."""
+        return _CompatModel(lambda img: self._hint(np.asarray(img, np.float32))
+                            .permute(0, 2, 3, 1).float().cpu().numpy())
+
+    @property
+    def control_net(self) -> "_CompatModel":
+        """``[latent, t_emb, context, hint (B, h, w, 320)]`` -> the 13 NHWC
+        residuals (12 skips and the mid block)."""
+        controlnet = self.controlnet
+
+        @torch.inference_mode()
+        def fn(inputs):
+            latent, t_emb, context, hint = inputs
+            outs = controlnet(self._tensor(latent), self._tensor(t_emb), self._tensor(context),
+                              self._tensor(hint).permute(0, 3, 1, 2))
+            return [o.permute(0, 2, 3, 1).float().cpu().numpy() for o in outs]
+
+        return _CompatModel(fn)
+
+
+class _CompatModel:
+    """A stand-in for a Keras model handle: ``predict_on_batch`` and ``__call__``."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def predict_on_batch(self, inputs):
+        return self._fn(inputs)
+
+    def __call__(self, inputs):
+        return self._fn(inputs)

@@ -39,7 +39,9 @@ def test_control_net_image_needs_a_controlnet(tmp_path):
     pipe = StableDiffusion(64, 64, device="cpu", bpe_path=write_merges(tmp_path / "m.txt.gz"))
     with pytest.raises(ValueError, match="ControlNet"):
         pipe.generate_image(np.zeros((77, 768), np.float32), control_net_image=edge_image(64, 64))
-    with pytest.raises(NotImplementedError):
-        StableDiffusion(64, 64, device="cpu", controlnet_path="controlnet.safetensors")
+    missing = StableDiffusion(64, 64, device="cpu",
+                              controlnet_path=str(tmp_path / "controlnet.safetensors"))
+    with pytest.raises(FileNotFoundError, match="controlnet"):
+        missing.generate_image(np.zeros((77, 768), np.float32), control_net_image=edge_image(64, 64))
     with pytest.raises(ValueError, match="textual-inversion"):
         pipe.text_to_image("hello", embedding=np.zeros((1, 640), np.float32))

@@ -12,6 +12,7 @@ runs where JAX is not installed; on the card, from the root of the checkout:
 (``--noconftest``: ``tests/conftest.py`` imports JAX and hides the card.)
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -278,3 +279,45 @@ def test_bf16_sampler_at_batch_2_on_the_card_matches_the_cpu(cuda, mode):
 
     assert torch.isfinite(card_bf16).all() and card_bf16.shape == (2, 32, 32, 4)
     assert rel_rms(card_bf16) <= 2 * rel_rms(cpu_bf16), (rel_rms(card_bf16), rel_rms(cpu_bf16))
+
+
+def test_checkpoint_files_load_on_the_card_as_assigned_modules(cuda, tmp_path):
+    """Full-width CLIP and VAE written to ``.safetensors`` files and loaded by the
+    pipeline in bf16 on the card give the same tensors and the same txt2img and
+    img2img images as the same weights assigned directly (a small UNet shared by
+    both). The VAE's attention runs on K2 and the UNet's level 0 on K1."""
+    from minsdtf_tpu_torch import StableDiffusion
+    from minsdtf_tpu_torch.models import clip as tclip
+    from minsdtf_tpu_torch.models import unet as tunet
+    from minsdtf_tpu_torch.models import vae as tvae
+    from minsdtf_tpu_torch.models.common import cast_weights_
+
+    text, enc, dec = (tclip.init("cpu", seed=1), tvae.init_encoder("cpu", seed=4),
+                      tvae.init_decoder("cpu", seed=2))
+    te = chip_smoke.write_safetensors(str(tmp_path / "te.safetensors"), text.state_dict())
+    vae = chip_smoke.write_safetensors(str(tmp_path / "vae.safetensors"),
+                                       {**enc.state_dict(), **dec.state_dict()})
+    unet = tunet.fuse_attention_projections(tunet.init(
+        cuda, seed=0, widths=(320, 64, 128, 128), temb_dim=128))
+    unet = cast_weights_(unet, torch.bfloat16).eval()
+    bpe = chip_smoke.synthetic_merges(str(tmp_path))
+    loaded = StableDiffusion(256, 256, bpe_path=bpe, text_encoder_ckpt=te, vae_ckpt=vae)
+    assigned = StableDiffusion(256, 256, bpe_path=bpe)
+    assert loaded.compute_dtype == assigned.compute_dtype == torch.bfloat16
+    loaded._unet = assigned._unet = unet
+    for name, module in (("_text_model", text), ("_encoder", enc), ("_decoder", dec)):
+        setattr(assigned, name, cast_weights_(module.to(cuda), torch.bfloat16).eval())
+    for name in ("text_model", "encoder", "decoder"):
+        got, want = getattr(loaded, name).state_dict(), getattr(assigned, name).state_dict()
+        assert got.keys() == want.keys()
+        for key in want:
+            assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
+    reference, _, _ = chip_smoke.synthetic_inputs(256)
+    for call in (lambda p: p.text_to_image("hello world", num_steps=3, seed=7),
+                 lambda p: p.image_to_image("hello world", num_steps=3, seed=7,
+                                            reference_image=reference)):
+        before = tfa.online_attention.launches
+        image = call(loaded)
+        assert tfa.online_attention.launches > before
+        assert image.shape == (1, 256, 256, 3) and image.max() > image.min()
+        assert np.array_equal(image, call(assigned))
