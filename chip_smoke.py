@@ -27,6 +27,14 @@ pipeline's bit for bit and give its images exactly; the LoRA-merged weights must
 equal the script's own fp32 merge, and ``set_lora(None)`` must give 8a's image
 back.
 
+Phase group 9 drives the serving path on the 512px pipeline, while 8a's files
+still exist: ``generate_images`` over four pre-encoded prompts against each
+seed's ``generate_image`` (9a); the batching HTTP server (``tools.serve``) with 8
+concurrent requests, merged batches held against their replays and measured
+against each request's batch-1 image, and a profile of the burst
+(``profile_serve.txt``; 9b); ``warm_text``, a prompt-cache hit and ``set_lora``
+emptying the cache (9c); ``tools.golden`` twice and ``tools.selfcheck`` (9d).
+
 Exits non-zero on any failure, when no card is visible, or when the port's package
 is not beside this file. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel with its
@@ -61,23 +69,6 @@ OUT_DIR = os.path.join(HERE, "chiprun_out", "chip_smoke")
 # outside them, HBM3.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-# (rtol, atol) against the plain version. With randn q, k, v and scale d**-0.5 the
-# output's rms is about sqrt(e / Sk), 0.026 at Sk = 4096, so atol sits well below
-# it. Another fp32 summation order (an online rescale, another tile order) can move
-# the final rounding to bf16 by one ulp, up to 2**-7 = 7.8e-3 of the output: rtol
-# covers that one ulp. fp32 errs by < 1e-6. A kernel that skips its last KV tile
-# fails every case (PERF.md).
-TOL = {torch.bfloat16: (8e-3, 2e-3), torch.float32: (2e-5, 2e-5)}
-# Phase 3's bf16 checks also allow for p's rounding. A p that a kernel rounds to
-# bf16 at another running max than the plain version, or that lands across a
-# rounding boundary (the scores differ in their last fp32 bits), differs from the
-# plain version's by at most one bf16 ulp, 2**-7 of p. That moves an output o by at
-# most 2**-7 sum_j c_j, c_j = w_j (|v_j| + |o|) with w = p / l (the |o| term: K1's
-# l sums the rounded p). Over many terms these errors mostly cancel, so the slack
-# per element is 2**-7 min(sum_j c_j, P_ROUND_RSS sqrt(sum_j c_j**2)). Where a few
-# keys carry a row (the adversarial inputs), that is one ulp of their terms, which
-# an output near zero made of large terms of opposite sign can need.
-P_ROUND_RSS = 4
 # The plain versions hold (B, H, Sq, Sk) fp32 scores, and a few tensors of that
 # size at once: phase 4 does not time the plain version above this, and phase 3
 # runs it over groups of heads whose scores stay under REF_GROUP_SCORE_BYTES.
@@ -134,7 +125,17 @@ BATCH_CASES = [
     ("onepass", 16, 4096, 4096, 8, 40, bf16, "adversarial"),
     ("online", 8, 4096, 4096, 1, 512, bf16, "contiguous"),   # path B at batch 8: no KV split
 ]
-CASES += BATCH_CASES
+# The shapes that the server's merged batches of 2 and 4 images give the kernels
+# (batch 8 is TCD's, above); the on-card tests run them too.
+SERVE_CASES = [
+    ("onepass", 4, 4096, 4096, 8, 40, bf16, "fused_qkv"),    # a merged batch of 2 under CFG
+    ("onepass", 8, 4096, 4096, 8, 40, bf16, "fused_qkv"),    # a merged batch of 4
+    ("onepass", 4, 1024, 1024, 8, 80, bf16, "fused_qkv"),
+    ("onepass", 8, 1024, 1024, 8, 80, bf16, "fused_qkv"),
+    ("online", 2, 4096, 4096, 1, 512, bf16, "contiguous"),   # path B: the decoder at batch 2
+    ("online", 4, 4096, 4096, 1, 512, bf16, "contiguous"),
+]
+CASES += BATCH_CASES + SERVE_CASES
 
 
 def log(*args):
@@ -282,33 +283,12 @@ def case_generator(case, base_seed: int = 0) -> torch.Generator:
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
-def rounding_slack(name, q, k, v, scale, want) -> torch.Tensor:
-    """Per output element, the most that p rounded to bf16 at another point than
-    in the plain version can move it (``P_ROUND_RSS``); (B, Sq, H, D) fp32."""
-    from minsdtf_tpu_torch.ops import flash_attention as fa
-
-    if name == "onepass":
-        qs = (q.float() * (scale * fa.LOG2E)).to(q.dtype)
-        s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
-        w = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-    else:
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-        w = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    del s
-    w /= w.sum(dim=-1, keepdim=True)
-    o, va = want.float().abs(), v.float().abs()
-    total = torch.einsum("bhqk,bkhd->bqhd", w, va) + o  # sum_j w_j = 1
-    w.square_()
-    w2_sum = w.sum(dim=-1).transpose(1, 2).unsqueeze(-1)  # (B, Sq, H, 1)
-    # sum_j w_j**2 (|v_j| + |o|)**2, expanded
-    rss = (torch.einsum("bhqk,bkhd->bqhd", w, va.square())
-           + 2 * o * torch.einsum("bhqk,bkhd->bqhd", w, va) + o.square() * w2_sum).sqrt()
-    return 2.0 ** -7 * torch.minimum(total, P_ROUND_RSS * rss)
-
-
 def reference(name, q, k, v, scale):
-    """The plain version's output and, in bf16, :func:`rounding_slack`, over groups
-    of heads whose fp32 scores stay under ``REF_GROUP_SCORE_BYTES``."""
+    """The plain version's output and, in bf16, ``selfcheck.rounding_slack`` (the
+    allowance for p's rounding), over groups of heads whose fp32 scores stay under
+    ``REF_GROUP_SCORE_BYTES``."""
+    from minsdtf_tpu_torch.tools.selfcheck import rounding_slack
+
     plain = _wrappers()[name][1]
     b, sq, h, _ = q.shape
     group = max(1, int(REF_GROUP_SCORE_BYTES // (4 * sq * k.shape[1])))
@@ -325,7 +305,11 @@ def reference(name, q, k, v, scale):
 
 def check_case(case, base_seed: int = 0):
     """One phase-3 case: the kernel against its plain version on the same inputs,
-    drawn by :func:`case_generator`. Returns (passed, max abs error, log line)."""
+    drawn by :func:`case_generator`, within ``selfcheck.TOL`` (the package's
+    module says why) plus the allowance for p's rounding. Returns (passed, max
+    abs error, log line)."""
+    from minsdtf_tpu_torch.tools.selfcheck import TOL
+
     name, b, sq, sk, h, d, dtype, layout = case
     q, k, v = qkv(b, sq, sk, h, d, dtype, case_generator(case, base_seed), layout)
     scale = d ** -0.5
@@ -363,8 +347,8 @@ def phase_check():
 
 
 def phase_time(gen):
-    """Kernel, plain and SDPA times at the shapes of the 512px and 1024px paths and of
-    TCD at batch 8 and the two-call CFG path, bf16,
+    """Kernel, plain and SDPA times at the shapes of the 512px and 1024px paths, of
+    TCD at batch 8, the two-call CFG path and the server's merged batches, bf16,
     beside the roofline bound and the exponentials' floor: device times from a CUDA
     graph, and the kernel's per-call time in a plain loop of wrapper calls."""
     from minsdtf_tpu_torch.ops import flash_attention as fa
@@ -383,6 +367,12 @@ def phase_time(gen):
         ("onepass", 1, 4096, 8, 40),    # the two-call CFG path (5j)
         ("onepass", 1, 1024, 8, 80),
         ("online", 8, 4096, 1, 512),    # path B: the decoder at batch 8
+        ("onepass", 4, 4096, 8, 40),    # the server's merged batches of 2 and 4
+        ("onepass", 8, 4096, 8, 40),
+        ("onepass", 4, 1024, 8, 80),
+        ("onepass", 8, 1024, 8, 80),
+        ("online", 2, 4096, 1, 512),
+        ("online", 4, 4096, 1, 512),
     ]
     wrappers = _wrappers()
     lib = fa._lib()
@@ -422,28 +412,38 @@ def phase_time(gen):
     return timings
 
 
+def zero_launches():
+    from minsdtf_tpu_torch.ops import flash_attention as fa
+
+    fa.onepass_attention.launches = 0
+    fa.online_attention.launches = 0
+
+
+def read_launches() -> dict:
+    from minsdtf_tpu_torch.ops import flash_attention as fa
+
+    return {"onepass": fa.onepass_attention.launches, "online": fa.online_attention.launches}
+
+
 def run_phase(label, generate, size, warm_images, expect, check=None, batch=1):
     """``generate(return_latent=...)`` once cold, then ``warm_images`` times warm;
     the launch counts are zeroed just before the first warm image and read just
     after it, and must equal ``expect``. ``check(image)`` adds named checks. A call
     makes ``batch`` images; its seconds per image are its wall time / ``batch``.
     Returns (passed, launches, warm seconds per image, peak GB)."""
-    from minsdtf_tpu_torch.ops import flash_attention as fa
-
     t0 = time.perf_counter()
     generate()
     torch.cuda.synchronize()
     log(f"{label} cold run: {time.perf_counter() - t0:.3f} s")
 
-    fa.onepass_attention.launches = 0
-    fa.online_attention.launches = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     resident_gb = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
     image, latent = generate(return_latent=True)
     torch.cuda.synchronize()
     samples = [(time.perf_counter() - t0) / batch]
-    launches = {"onepass": fa.onepass_attention.launches, "online": fa.online_attention.launches}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for _ in range(warm_images - 1):
         t0 = time.perf_counter()
@@ -638,56 +638,40 @@ def phase_samplers(pipe, size: int, directory: str):
     return results
 
 
-def _kernel_group(name: str) -> str:
-    lowered = name.lower()
-    for group, marks in (("attention K1/K2", ("flash_onepass", "flash_online", "flash_bf16")),
-                         ("convolution", ("conv", "fprop", "implicit", "dgrad", "winograd")),
-                         ("gemm", ("gemm", "nvjet", "cutlass", "matmul")),
-                         ("norm", ("norm",)),
-                         ("memcpy/memset", ("memcpy", "memset"))):
-        if any(m in lowered for m in marks):
-            return group
-    return "elementwise/other"
-
-
 def phase_profile(generate, s_per_img: float, label: str, filename: str):
     """One more warm image, ``generate()``, under torch.profiler: device time by
-    kernel name and by group, and the device's busy share of the unprofiled wall
-    time. Only CUDA activity is recorded: the host's events cost most of the
-    profiler's processing time and no number here reads them."""
-    from torch.autograd import DeviceType
+    kernel name and by group (``profiling.op_report``), and the device's busy share
+    of the unprofiled wall time ``s_per_img``. Only CUDA activity is recorded: the
+    host's events cost most of the profiler's processing time and no number here
+    reads them. Returns the busy share, or None where the profiler recorded no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from minsdtf_tpu_torch import profiling
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         generate()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            total, count = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (total + e.device_time_total / 1e3, count + 1)
+    by_name = profiling.op_report(prof, top=None)
     busy_ms = sum(t for t, _ in by_name.values())
     if busy_ms == 0:
         log(f"{label} profile: the profiler recorded no device time (not measured)")
-        return
-    groups = {}
-    for name, (t, n) in by_name.items():
-        g = groups.setdefault(_kernel_group(name), [0.0, 0])
-        g[0] += t
-        g[1] += n
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        return None
+    groups = profiling.op_report(prof, by="group", top=None)
     with open(os.path.join(OUT_DIR, filename), "w") as f:
         f.write(f"device busy {busy_ms:.3f} ms, profiled wall {wall_ms:.3f} ms\n")
-        for name, (t, n) in rows:
+        for name, (t, n) in by_name.items():
             f.write(f"{t:10.3f} ms {n:6d}  {name}\n")
+    share = busy_ms / (s_per_img * 1e3)
     log(f"{label} profile: device busy {busy_ms:.3f} ms in a profiled wall of {wall_ms:.3f} ms; "
-        f"busy share of the unprofiled {s_per_img * 1e3:.3f} ms: {busy_ms / (s_per_img * 1e3):.4f}")
-    for group, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        f"busy share of the unprofiled {s_per_img * 1e3:.3f} ms: {share:.4f}")
+    for group, (t, n) in groups.items():
         log(f"  group {group}: {t:.3f} ms, {n} launches, {t / busy_ms:.4f} of device time")
-    for name, (t, n) in rows[:15]:
+    for name, (t, n) in list(by_name.items())[:15]:
         log(f"  {t:9.3f} ms {n:5d}  {name[:110]}")
+    return share
 
 
 # ---- phases 8a-8c: checkpoint and LoRA files ------------------------------------
@@ -1027,27 +1011,291 @@ def phase_lora(pipe, bpe: str, directory: str, path: str, want_images):
     return ok and all(checks.values()), launches, numbers
 
 
-def phase_checkpoints(pipe, bpe: str, controlnet_generate):
-    """Phases 8a-8c in ``build/chip_smoke_ckpt/`` (gitignored), removed at the
-    end. Returns ({path: launches}, numbers), or None if a phase failed."""
-    directory = os.path.join(HERE, "build", "chip_smoke_ckpt")
-    os.makedirs(directory, exist_ok=True)
-    try:
-        ok, launches_ckpt, path, want_images, numbers = phase_checkpoint(pipe, bpe, directory)
-        if not ok:
-            return None
-        ok, launches_pth, more = phase_controlnet_pth(pipe, bpe, directory, controlnet_generate)
-        numbers.update(more)
-        if not ok:
-            return None
-        ok, launches_lora, more = phase_lora(pipe, bpe, directory, path, want_images)
-        numbers.update(more)
-        if not ok:
-            return None
-    finally:
-        shutil.rmtree(directory)
+def phase_checkpoints(pipe, bpe: str, directory: str, controlnet_generate):
+    """Phases 8a-8c in ``directory``, which the caller removes. Returns ({path:
+    launches}, numbers, the 8a checkpoint's path), or None if a phase failed."""
+    ok, launches_ckpt, path, want_images, numbers = phase_checkpoint(pipe, bpe, directory)
+    if not ok:
+        return None
+    ok, launches_pth, more = phase_controlnet_pth(pipe, bpe, directory, controlnet_generate)
+    numbers.update(more)
+    if not ok:
+        return None
+    ok, launches_lora, more = phase_lora(pipe, bpe, directory, path, want_images)
+    numbers.update(more)
+    if not ok:
+        return None
     return ({"ckpt": launches_ckpt, "controlnet_pth": launches_pth, "lora": launches_lora},
-            numbers)
+            numbers, path)
+
+
+# ---- phase group 9: the serving path -----------------------------------------------
+
+SERVE_SETTINGS = dict(num_steps=25, unconditional_guidance_scale=7.5, guidance_rescale=0.7)
+
+
+def pixel_diff(got: np.ndarray, want: np.ndarray) -> tuple:
+    """(max |got - want| over the uint8 values, share of pixels where any channel
+    differs)."""
+    diff = np.abs(got.astype(int) - want.astype(int))
+    return int(diff.max()), float((diff.max(axis=-1) > 0).mean())
+
+
+def phase_generate_images(pipe) -> dict:
+    """9a: four pre-encoded prompts with seeds as one ``generate_images`` call, each
+    image against the same seed's ``generate_image`` at batch 1 (exactly), the
+    queued call's wall against four sequential calls', and the launches of the
+    queued call (K1 1000, K2 4)."""
+    prompts = [f"{PROMPT} number {w}" for w in ("one", "two", "three", "four")]
+    seeds = [21, 22, 23, 24]
+    contexts = [pipe._encode_text_dev(p) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    singles = [pipe.generate_image(c, seed=s, **SERVE_SETTINGS) for c, s in zip(contexts, seeds)]
+    sequential_s = time.perf_counter() - t0
+    zero_launches()
+    t0 = time.perf_counter()
+    queued = pipe.generate_images(contexts, seeds=seeds, **SERVE_SETTINGS)
+    queued_s = time.perf_counter() - t0
+    launches = read_launches()
+    size = pipe.img_height
+    log(f"phase 9a generate_images: 4 images in {queued_s:.4f} s queued "
+        f"({queued_s / 4:.4f} s/img) against {sequential_s:.4f} s as four generate_image "
+        f"calls ({sequential_s / 4:.4f} s/img); launches of the queued call {launches}")
+    checks = {
+        f"four (1, {size}, {size}, 3) uint8 images": len(queued) == 4 and all(
+            q.shape == (1, size, size, 3) and q.dtype == np.uint8 for q in queued),
+        "each equals its seed's generate_image at batch 1": all(
+            np.array_equal(q, s) for q, s in zip(queued, singles)),
+        "images differ between seeds": not np.array_equal(queued[0], queued[1]),
+        "K1 launches == 1000": launches["onepass"] == 1000,
+        "K2 launches == 4": launches["online"] == 4,
+    }
+    log(f"phase 9a checks: {checks}")
+    return {"ok": all(checks.values()), "launches": launches, "queued_s": queued_s,
+            "sequential_s": sequential_s}
+
+
+class RecordingPipe:
+    """``pipe`` with each ``generate_image`` call's arguments and result kept in
+    ``calls``; every other attribute is ``pipe``'s."""
+
+    def __init__(self, pipe):
+        self._pipe = pipe
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self._pipe, name)
+
+    def generate_image(self, *args, **kwargs):
+        out = self._pipe.generate_image(*args, **kwargs)
+        self.calls.append((args, kwargs, out))
+        return out
+
+
+def post_burst(port: int, payloads) -> list:
+    """Every payload posted to ``/generate`` at once, one client thread each;
+    returns the ``(status, reply)`` of each, in order (None where none came)."""
+    import urllib.request
+
+    replies = [None] * len(payloads)
+
+    def client(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate", data=json.dumps(payloads[i]).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            replies[i] = (r.status, json.loads(r.read()))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return replies
+
+
+def get_json(port: int, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return json.loads(r.read())
+
+
+def phase_serve(pipe) -> dict:
+    """9b: ``tools.serve.serve(pipe, port=0)`` and 8 concurrent ``/generate``
+    requests (six with the same settings, one with 15 steps, one at guidance 5),
+    then ``/healthz`` and ``/stats``; every reply an (H, W, 3) uint8 image; the
+    merged noise rows equal each seed's batch-1 noise exactly; each merged call
+    replayed gives its images exactly; a request served alone equals its batch-1
+    image exactly, and a merged one is measured against it (max |diff|, share of
+    pixels that differ). The same burst is then timed warm and run once more under
+    torch.profiler."""
+    from minsdtf_tpu_torch import rng as rng_lib
+    from minsdtf_tpu_torch.pipeline import fetch
+    from minsdtf_tpu_torch.tools import serve as serve_mod
+
+    payloads = [{"prompt": f"{PROMPT} request {i}", "seed": 100 + i} for i in range(8)]
+    payloads[6]["steps"] = 15
+    payloads[7]["guidance_scale"] = 5.0
+    recorder = RecordingPipe(pipe)
+    server, worker = serve_mod.serve(recorder, port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        replies = post_burst(port, payloads)
+        cold_s = time.perf_counter() - t0
+        launches = read_launches()
+        healthz, stats = get_json(port, "/healthz"), get_json(port, "/stats")
+        calls = list(recorder.calls)
+        # the first burst is the first use of the batch sizes 2 and 4: time a second
+        t0 = time.perf_counter()
+        post_burst(port, payloads)
+        burst_s = time.perf_counter() - t0
+        busy_share = phase_profile(lambda: post_burst(port, payloads), burst_s,
+                                   "phase 9b serve burst", "profile_serve.txt")
+    finally:
+        server.shutdown()
+        server.server_close()
+        worker.stop()
+        thread.join(timeout=30)
+    sizes = [kw.get("batch_size", 1) for _, kw, _ in calls]
+    steps = [kw["num_steps"] for _, kw, _ in calls]
+    log(f"phase 9b serve: 8 requests in {cold_s:.4f} s the first time ({cold_s / 8:.4f} s/img), "
+        f"{burst_s:.4f} s the second ({burst_s / 8:.4f} s/img); the first burst's calls "
+        f"dispatched at batch sizes {sizes} (steps {steps}), /healthz {healthz}, /stats "
+        f"{stats}, launches {launches}")
+    images = [serve_mod.decode_image(r[1]) if r and r[0] == 200 else None for r in replies]
+    size = pipe.img_height
+
+    # which seeds each call served: its own seed, or the rows of its noise
+    h8 = pipe.img_height // 8
+    noise_of = {p["seed"]: rng_lib.stateless_normal((1, h8, h8, 4), p["seed"]) for p in payloads}
+    seeds_of, rows_ok = [], True
+    for _, kw, _ in calls:
+        if kw.get("seed") is not None:
+            seeds_of.append([kw["seed"]])
+            continue
+        found = []
+        for row in np.asarray(kw["diffusion_noise"]):
+            match = [s for s, n in noise_of.items() if np.array_equal(row, n[0])]
+            rows_ok &= len(match) == 1
+            found += match
+        seeds_of.append(found)
+    served = sorted(s for found in seeds_of for s in found)
+    replay_equal = True
+    for (args, kw, handle), found in zip(calls, seeds_of):
+        if len(found) > 1:
+            again = pipe.generate_image(*args, **{k: v for k, v in kw.items()
+                                                  if k != "_defer_fetch"})
+            replay_equal &= bool(np.array_equal(again, fetch(handle)))
+    alone_equal, merged_diffs = True, []
+    for p, image in zip(payloads, images):
+        if image is None:
+            continue
+        want = pipe.generate_image(
+            pipe._encode_text_dev(p["prompt"]), seed=p["seed"],
+            num_steps=p.get("steps", 25),
+            unconditional_guidance_scale=p.get("guidance_scale", 7.5), guidance_rescale=0.7)[0]
+        found = next(f for f in seeds_of if p["seed"] in f)
+        if len(found) == 1:
+            alone_equal &= bool(np.array_equal(image, want))
+        else:
+            merged_diffs.append((p["seed"], len(found), *pixel_diff(image, want)))
+    for seed, batch, max_diff, share in merged_diffs:
+        log(f"phase 9b: request seed {seed}, merged at batch {batch}, against its batch-1 image: "
+            f"max |diff| {max_diff}, share of pixels that differ {share:.6f}")
+    expect = {"onepass": sum(10 * n for n in steps), "online": len(calls)}
+    checks = {
+        "8 replies, 200": all(r is not None and r[0] == 200 for r in replies),
+        f"each reply a ({size}, {size}, 3) uint8 image": all(
+            i is not None and i.shape == (size, size, 3) and i.dtype == np.uint8 for i in images),
+        "merged_batches >= 1": stats["merged_batches"] >= 1 and any(n > 1 for n in sizes),
+        "/healthz ok": healthz.get("ok") is True,
+        "/stats served 8": stats["served"] == 8,
+        "each request served once": served == sorted(noise_of),
+        "merged noise rows equal each seed's batch-1 noise": rows_ok,
+        "merged calls replayed give their images exactly": replay_equal,
+        "requests served alone equal their batch-1 images": alone_equal,
+        f"K1 launches == {expect['onepass']} (10 a step a call)":
+            launches["onepass"] == expect["onepass"],
+        f"K2 launches == {expect['online']} (1 a call)": launches["online"] == expect["online"],
+    }
+    log(f"phase 9b checks: {checks}")
+    return {"ok": all(checks.values()), "launches": launches, "cold_burst_s": cold_s,
+            "burst_s": burst_s, "s_per_img": burst_s / 8, "batch_sizes": sizes,
+            "busy_share": busy_share,
+            "merged_vs_batch1": [dict(zip(("seed", "batch", "max_abs_diff", "share_differ"), d))
+                                 for d in merged_diffs]}
+
+
+def clip_lora(directory: str, seed: int = 10) -> str:
+    """A rank-4 kohya LoRA on one CLIP projection, from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    key = "lora_te_text_model_encoder_layers_0_self_attn_q_proj"
+    return write_safetensors(os.path.join(directory, "lora-clip.safetensors"), {
+        f"{key}.lora_down.weight": torch.randn(4, 768, generator=gen) * 0.05,
+        f"{key}.lora_up.weight": torch.randn(768, 4, generator=gen) * 0.05,
+        f"{key}.alpha": torch.tensor([4.0])})
+
+
+def phase_caches(pipe, bpe: str, directory: str, ckpt_path: str) -> dict:
+    """9c: after ``warm_text`` the prompt cache is empty and the unconditional
+    context set; a fresh prompt's repeat is a cache hit (no device operation under
+    torch.profiler); ``set_lora`` empties the cache of a pipeline loaded from 8a's
+    checkpoint, and the context after it differs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe.warm_text()
+    checks = {"warm_text leaves the cache empty": len(pipe._prompt_cache) == 0,
+              "warm_text sets the unconditional context": pipe._uncond is not None}
+    fresh = f"{PROMPT} for the cache"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = pipe._encode_text_dev(fresh)
+    torch.cuda.synchronize()
+    fresh_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = pipe._encode_text_dev(fresh)
+        torch.cuda.synchronize()
+        hit_ms = (time.perf_counter() - t0) * 1e3
+    device_ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    checks["a repeat is a cache hit: no device operation"] = again is first and not device_ops
+    lpipe = checkpoint_pipeline(bpe, pipe.img_height, pipe.device, text_encoder_ckpt=ckpt_path)
+    base = lpipe._encode_text_dev(fresh).clone()
+    checks["the loaded pipeline caches its context"] = len(lpipe._prompt_cache) == 1
+    lpipe.set_lora(clip_lora(directory))
+    checks["set_lora empties the prompt cache"] = len(lpipe._prompt_cache) == 0
+    checks["the context after set_lora differs"] = not torch.equal(
+        lpipe._encode_text_dev(fresh), base)
+    log(f"phase 9c caches: a fresh encode {fresh_ms:.3f} ms, its repeat {hit_ms:.3f} ms with "
+        f"{len(device_ops)} device operations; checks: {checks}")
+    return {"ok": all(checks.values()), "fresh_encode_ms": fresh_ms, "cache_hit_ms": hit_ms}
+
+
+def phase_tools(bpe: str, directory: str, ckpt_path: str) -> dict:
+    """9d: ``tools.golden`` twice on 8a's checkpoint (the first run creates the
+    fixtures, the second compares them: rc 0 both) and ``tools.selfcheck``."""
+    from minsdtf_tpu_torch.tools import golden, selfcheck
+
+    fixtures = os.path.join(directory, "golden")
+    t0 = time.perf_counter()
+    rc_create = golden.run(ckpt_path, ckpt_path, ckpt_path, bpe, fixtures, device="cuda")
+    rc_compare = golden.run(ckpt_path, ckpt_path, ckpt_path, bpe, fixtures, device="cuda")
+    golden_s = time.perf_counter() - t0
+    results = selfcheck.check_flash_attention()
+    checks = {"golden creates the fixtures (rc 0)": rc_create == 0 and os.path.exists(
+                  os.path.join(fixtures, f"golden_{golden.SEED}_latent.npy")),
+              "golden matches them (rc 0)": rc_compare == 0,
+              "selfcheck ran K1 and K2 at two shapes each": len(results) == 4}
+    log(f"phase 9d tools: golden twice in {golden_s:.3f} s, selfcheck {results}; checks: {checks}")
+    return {"ok": all(checks.values())}
 
 
 def main() -> int:
@@ -1110,11 +1358,22 @@ def main() -> int:
         phase_profile(generate, 8 * statistics.median(warm), "phase 7e TCD batch 8",
                       "profile_tcd_b8.txt")
         mark("phases 7-7e")
-        checkpoints = phase_checkpoints(pipe, bpe, new_paths["controlnet"][-1])
-        if checkpoints is None:
-            return 1
-        ckpt_launches, ckpt_numbers = checkpoints
-        mark("phases 8a-8c")
+        directory = os.path.join(HERE, "build", "chip_smoke_ckpt")  # gitignored
+        os.makedirs(directory, exist_ok=True)
+        try:
+            checkpoints = phase_checkpoints(pipe, bpe, directory, new_paths["controlnet"][-1])
+            if checkpoints is None:
+                return 1
+            ckpt_launches, ckpt_numbers, ckpt_path = checkpoints
+            mark("phases 8a-8c")
+            serving = {"generate_images": phase_generate_images(pipe), "serve": phase_serve(pipe),
+                       "caches": phase_caches(pipe, bpe, directory, ckpt_path),
+                       "tools": phase_tools(bpe, directory, ckpt_path)}
+            if not all(r["ok"] for r in serving.values()):
+                return 1
+            mark("phases 9a-9d")
+        finally:
+            shutil.rmtree(directory)
     new_paths.update(samplers)
 
     rows = []
@@ -1127,6 +1386,8 @@ def main() -> int:
                      "launches": launches[name], "launches_1024px": launches_1024[name],
                      **{f"launches_{path}": r[1][name] for path, r in new_paths.items()},
                      **{f"launches_{path}": n[name] for path, n in ckpt_launches.items()},
+                     **{f"launches_{path}": serving[path]["launches"][name]
+                        for path in ("generate_images", "serve")},
                      "max_abs_err": errors[name],
                      **{k: main_shape[k] for k in ("ms", "loop_ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms", "shape")},
@@ -1138,7 +1399,7 @@ def main() -> int:
                    **{f"{key}_{path}": value for path, (_, _, warm, peak, _) in new_paths.items()
                       for key, value in (("s_per_img", statistics.median(warm)),
                                          ("s_per_img_samples", warm), ("peak_gb", peak))},
-                   "checkpoints": ckpt_numbers, "kernels": rows}, f, indent=1)
+                   "checkpoints": ckpt_numbers, "serving": serving, "kernels": rows}, f, indent=1)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))
@@ -1152,10 +1413,13 @@ def small_reference_check(bpe: str, directory: str) -> bool:
     the CPU with the same weights: txt2img (phase 6), then img2img, inpaint and
     ControlNet txt2img (phase 6b), then each other sampler, v-prediction, batch 2
     and a TI embedding with a negative embedding (phase 6c, at CFG 3; the
-    samplers' step noise is drawn on the host, so both devices get the same). On the card they run
+    samplers' step noise is drawn on the host, so both devices get the same), then
+    two requests merged as the server merges them and the same two at batch 1
+    (phase 6d), each also held against the other on each device. On the card they run
     K1 (1024 tokens, d=40) and K2 (the VAE's d=192), on the CPU the plain versions.
     Latent within 1e-3, uint8 image within 1."""
     from minsdtf_tpu_torch import StableDiffusion
+    from minsdtf_tpu_torch import rng as rng_lib
     from minsdtf_tpu_torch.models import clip as clip_lib
     from minsdtf_tpu_torch.models import controlnet as controlnet_lib
     from minsdtf_tpu_torch.models import unet as unet_lib
@@ -1185,6 +1449,24 @@ def small_reference_check(bpe: str, directory: str) -> bool:
     def txt3(pipe, **kw):
         return txt(pipe, unconditional_guidance_scale=3.0, **kw)
 
+    # 6d: two requests as the server merges them (stacked contexts, each seed's
+    # noise row) and each at batch 1, at the server's settings
+    pair = (("hello world", 7), ("the cat", 8))
+    serve_kw = dict(num_steps=3, unconditional_guidance_scale=7.5, guidance_rescale=0.7,
+                    return_latent=True)
+
+    def merged(pipe):
+        h8 = pipe.img_height // 8
+        return pipe.generate_image(
+            torch.cat([pipe._encode_text_dev(p) for p, _ in pair]), batch_size=2,
+            diffusion_noise=np.concatenate([rng_lib.stateless_normal((1, h8, h8, 4), s)
+                                            for _, s in pair]), **serve_kw)
+
+    def batch1_pair(pipe):
+        outs = [pipe.generate_image(pipe._encode_text_dev(p), seed=s, **serve_kw)
+                for p, s in pair]
+        return tuple(np.concatenate(parts) for parts in zip(*outs))
+
     runs = {  # label: (pipeline settings, the call)
         "phase 6 txt2img": ({}, txt),
         "phase 6b img2img": ({}, lambda pipe: pipe.image_to_image(
@@ -1203,6 +1485,8 @@ def small_reference_check(bpe: str, directory: str) -> bool:
         "phase 6c batch 2": ({}, lambda pipe: txt3(pipe, batch_size=2)),
         "phase 6c TI + negative embedding": ({}, lambda pipe: txt3(
             pipe, embedding=ti, negative_embedding=neg)),
+        "phase 6d merged batch of 2": ({}, merged),
+        "phase 6d the same two at batch 1": ({}, batch1_pair),
     }
     results = {}
     for device in ("cuda", "cpu"):
@@ -1227,6 +1511,16 @@ def small_reference_check(bpe: str, directory: str) -> bool:
         log(f"{label} small fp32, card vs CPU: latent max_abs_err {lat_err:.3e} (tol 1e-3; max "
             f"|latent| {float(abs(lat_c).max()):.3e}), image max |diff| {img_err} (tol 1), "
             f"images {img_g.shape}, kernel launches {n_g} on the card, {n_c} on the CPU "
+            f"{'ok' if ok else 'FAIL'}")
+    for device in ("cuda", "cpu"):
+        (img_m, lat_m), _ = results["phase 6d merged batch of 2", device]
+        (img_1, lat_1), _ = results["phase 6d the same two at batch 1", device]
+        lat_err = float(abs(lat_m - lat_1).max())
+        img_err = int(abs(img_m.astype(int) - img_1.astype(int)).max())
+        ok = img_m.shape == img_1.shape == (2, 256, 256, 3) and lat_err <= 1e-3 and img_err <= 1
+        all_ok &= ok
+        log(f"phase 6d small fp32 on {device}, merged batch of 2 vs the same at batch 1: latent "
+            f"max_abs_err {lat_err:.3e} (tol 1e-3), image max |diff| {img_err} (tol 1) "
             f"{'ok' if ok else 'FAIL'}")
     return all_ok
 

@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -24,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}  # name -> loaded library
+_LOAD_LOCK = threading.Lock()  # one build and load per source, whichever thread asks
 
 
 def _nvcc() -> str:
@@ -64,9 +66,10 @@ def build() -> Dict[str, Tuple[float, str]]:
 
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        if not library_path(name).exists():
-            _compile(name)
-        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
-    return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            if not library_path(name).exists():
+                _compile(name)
+            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        return lib

@@ -18,7 +18,9 @@ array, or a list of them) is spliced in front of the prompt's tokens, and a
 from it noised to the truncated schedule's first t; ``inpaint`` also blends the
 reference back outside the mask, in the latent each step and in the image at the
 end. ``control_net_image`` runs the ControlNet before each UNet call. Images and
-masks are numpy arrays (a path string needs PIL).
+masks are numpy arrays (a path string needs PIL). ``generate_images`` queues
+several requests before it fetches any (``_defer_fetch``, :func:`fetch`); prompt
+contexts and schedules are cached per pipeline.
 
 Weights: ``unet_ckpt``, ``text_encoder_ckpt``, ``vae_ckpt`` and ``controlnet_path``
 take a checkpoint file (LDM single-file or diffusers layout, ``.safetensors`` or a
@@ -60,11 +62,14 @@ from minsdtf_tpu_torch.models import vae as vae_lib
 from minsdtf_tpu_torch.models.common import build, cast_weights_
 from minsdtf_tpu_torch.text import prompt_weighting as lpw
 from minsdtf_tpu_torch.text.tokenizer import ClipTokenizer
-from minsdtf_tpu_torch.weights import convert, fetch, textual_inversion
+from minsdtf_tpu_torch.weights import convert, textual_inversion
+from minsdtf_tpu_torch.weights import fetch as fetch_lib
 from minsdtf_tpu_torch.weights import lora as lora_lib
 
 MAX_PROMPT_LENGTH = 77
 PAD_TOKEN_ID = 49407
+PROMPT_CACHE_SIZE = 8
+SCHEDULE_CACHE_SIZE = 16
 
 
 def draw_step_noise(seed: int, shape: Sequence[int]) -> torch.Tensor:
@@ -72,6 +77,26 @@ def draw_step_noise(seed: int, shape: Sequence[int]) -> torch.Tensor:
     from a CPU generator seeded with ``seed``: the same on every device."""
     gen = torch.Generator().manual_seed(int(seed))
     return torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+
+
+def to_device(a, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``a`` (numpy, a number or a tensor) as a tensor on ``device``. A host array
+    bound for the card is staged in pinned memory and copied without waiting: a
+    copy from pageable memory waits for every kernel queued before it, which would
+    hold the host until the card is idle."""
+    t = torch.as_tensor(a, dtype=dtype)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def fetch(handle) -> np.ndarray:
+    """A result of ``generate_image(..., _defer_fetch=True)`` as numpy: a tensor is
+    copied to the host, which waits for every kernel queued on the card's stream
+    before the copy; anything else goes through ``np.asarray``."""
+    if isinstance(handle, torch.Tensor):
+        return handle.cpu().numpy()
+    return np.asarray(handle)
 
 
 def _existing(path, kind: str) -> str:
@@ -144,14 +169,19 @@ class StableDiffusion:
         self._controlnet = None
         self._tokenizer = None
         self._uncond = None
+        # (prompt, unconditional row encoded yet?) -> context on the device, up to
+        # PROMPT_CACHE_SIZE entries, oldest out first
+        self._prompt_cache = {}
+        # (num_steps, strength, eta) -> (DenoiseSchedule, t_embs on the device)
+        self._schedule_cache = {}
         if lora_path is not None:
             self.set_lora(lora_path)
 
     def set_lora(self, lora_path: Optional[str], scale: float = 1.0) -> None:
-        """Switch the active LoRA at run time: the UNet, the text encoder and the
-        cached unconditional context are dropped, and the next use re-derives them
-        from the cached base checkpoints with the new deltas, times ``scale``,
-        merged. ``None`` removes the LoRA."""
+        """Switch the active LoRA at run time: the UNet, the text encoder, the
+        cached unconditional context and the prompt cache are dropped, and the next
+        use re-derives them from the cached base checkpoints with the new deltas,
+        times ``scale``, merged. ``None`` removes the LoRA."""
         te = unet = None
         if lora_path is not None:
             te, unet = lora_lib.load_lora(_existing(lora_path, "lora"))
@@ -165,6 +195,7 @@ class StableDiffusion:
         self._unet = None
         self._text_model = None
         self._uncond = None
+        self._prompt_cache.clear()
 
     # ---- lazy models ------------------------------------------------------------
 
@@ -173,7 +204,7 @@ class StableDiffusion:
         at ``path`` with ``lora`` merged; a URL or "default" is fetched first."""
         if not os.path.exists(str(path)):
             try:
-                path = fetch.resolve(path, kind)
+                path = fetch_lib.resolve(path, kind)
             except Exception as e:
                 raise FileNotFoundError(f"{kind}: cannot fetch {path}: {e}") from e
         return convert.convert_cached(kind, _existing(path, kind), lora=lora)
@@ -246,13 +277,29 @@ class StableDiffusion:
 
     def _encode_text_dev(self, prompt: Union[str, List[str]], embedding_data=None) -> torch.Tensor:
         """Prompt -> (B, 77*m, 768) fp32 context on the device, via A1111 LPW, with
-        the textual-inversion vectors of ``embedding_data`` spliced in front."""
+        the textual-inversion vectors of ``embedding_data`` spliced in front.
+        Without ``embedding_data`` the context is cached under the prompt and
+        whether the unconditional row had been encoded yet: the first encode
+        carries that row as one more batch row, which on the card changes the
+        context's last bits. The cached tensor is returned as it is; no caller
+        writes into it."""
+        key = None
+        if embedding_data is None:
+            key = (prompt if isinstance(prompt, str) else tuple(prompt), self._uncond is not None)
+            hit = self._prompt_cache.get(key)
+            if hit is not None:
+                return hit
         embedding = textual_inversion.embedding_matrix(embedding_data)
-        return lpw.get_weighted_text_embeddings(
+        context = lpw.get_weighted_text_embeddings(
             self.tokenizer, self._fused_text_call, prompt,
             model_max_length=MAX_PROMPT_LENGTH, pad_token_id=PAD_TOKEN_ID,
             embedding=None if embedding is None else embedding[None],
             embedding_tokens_count=0 if embedding is None else embedding.shape[0])
+        if key is not None:
+            if len(self._prompt_cache) >= PROMPT_CACHE_SIZE:
+                self._prompt_cache.pop(next(iter(self._prompt_cache)))
+            self._prompt_cache[key] = context
+        return context
 
     @torch.inference_mode()
     def _fused_text_call(self, token_array, weight_array, embedding, splice_n,
@@ -263,9 +310,9 @@ class StableDiffusion:
         tok = self.tokenizer
         context, uncond = clip_lib.fused_lpw_encode(
             self.text_model,
-            torch.as_tensor(token_array, dtype=torch.long, device=self.device),
-            None if weight_array is None else torch.as_tensor(weight_array, device=self.device),
-            None if embedding is None else torch.as_tensor(embedding, device=self.device),
+            to_device(token_array, self.device, torch.long),
+            None if weight_array is None else to_device(weight_array, self.device),
+            None if embedding is None else to_device(embedding, self.device),
             m=(token_array.shape[1] - 2) // (MAX_PROMPT_LENGTH - 2),
             splice_n=int(splice_n),
             with_uncond=want_uncond,
@@ -281,16 +328,43 @@ class StableDiffusion:
     def encode_text(self, prompt: Union[str, List[str]], embedding_data=None) -> np.ndarray:
         """Prompt -> (B, 77*m, 768) fp32 context via A1111 LPW. ``embedding_data``:
         a textual-inversion file (``.pt`` or ``.safetensors``), an (n, 768) array,
-        or a list of them, concatenated along the token axis."""
-        return self._encode_text_dev(prompt, embedding_data).cpu().numpy()
+        or a list of them, concatenated along the token axis. The array is a copy:
+        writing into it leaves the prompt cache as it was."""
+        return self._encode_text_dev(prompt, embedding_data).to("cpu", copy=True).numpy()
+
+    def warm_text(self) -> None:
+        """Encode a one-chunk prompt with the unconditional row and then without it
+        (where the row is unset yet), emptying the prompt cache after each: a
+        serving daemon's first fresh prompt then finds CLIP's weights loaded and
+        its kernels loaded and chosen."""
+        self._encode_text_dev("warmup prompt")
+        self._prompt_cache.clear()
+        self._encode_text_dev("warmup prompt")
+        self._prompt_cache.clear()
 
     @torch.inference_mode()
     def _unconditional_context(self) -> torch.Tensor:
         """[BOS] + [EOT]*76 through embed + encode, bypassing LPW; cached."""
         if self._uncond is None:
-            tokens = torch.as_tensor(clip_lib.uncond_tokens(), device=self.device)
+            tokens = to_device(clip_lib.uncond_tokens(), self.device)
             self._uncond = clip_lib.encode_tokens(self.text_model, tokens, self.clip_skip)
         return self._uncond
+
+    def _device_schedule(self, num_steps: int, strength: Optional[float], eta: float):
+        """``(DenoiseSchedule, t_embs (n, 320) fp32 on the device)`` for the
+        pipeline's scheduler, cached under ``(num_steps, strength, eta)``, up to
+        SCHEDULE_CACHE_SIZE entries, oldest out first."""
+        key = (int(num_steps), None if strength is None else round(float(strength), 6),
+               round(float(eta), 6))
+        hit = self._schedule_cache.get(key)
+        if hit is None:
+            schedule = sched_lib.build_denoise_schedule(self.scheduler, num_steps,
+                                                        strength=strength, eta=eta)
+            t_embs = to_device(sched_lib.timestep_embedding(schedule.timesteps), self.device)
+            if len(self._schedule_cache) >= SCHEDULE_CACHE_SIZE:
+                self._schedule_cache.pop(next(iter(self._schedule_cache)))
+            hit = self._schedule_cache[key] = (schedule, t_embs)
+        return hit
 
     # ---- generation -------------------------------------------------------------
 
@@ -413,6 +487,7 @@ class StableDiffusion:
         eta=0.3,
         return_latent=False,
         return_trajectory=False,
+        _defer_fetch=False,
     ):
         """``encoded_text``: a (S, 768) or (B, S, 768) context (numpy or tensor),
         broadcast over ``batch_size`` when its batch is 1. img2img runs only when
@@ -421,14 +496,20 @@ class StableDiffusion:
         with ``negative_prompt or ""``. ``eta`` is TCD's gamma. Returns the uint8
         (B, H, W, 3) image as numpy, then the fp32 latent when ``return_latent``,
         then the fp32 (n, B, h, w, 4) latent after each step when
-        ``return_trajectory``."""
+        ``return_trajectory``.
+
+        With ``_defer_fetch`` the same results are returned as tensors on the
+        device, and nothing waits for the card: the caller turns them into numpy
+        with :func:`fetch`, so the host can queue the next request meanwhile
+        (:meth:`generate_images`). img2img and inpaint still wait once, for the
+        encoded reference latent (:meth:`_encode_image`)."""
         if diffusion_noise is not None and seed is not None:
             raise ValueError("`diffusion_noise` and `seed` should not both be passed to "
                              "`generate_image`.")
         if control_net_image is not None and self.controlnet is None:
             raise ValueError("`control_net_image` needs a ControlNet; none is loaded")
         h8, w8 = self.img_height // 8, self.img_width // 8
-        context = torch.as_tensor(encoded_text, dtype=torch.float32, device=self.device)
+        context = to_device(encoded_text, self.device, torch.float32)
         if context.dim() == 2:
             context = context[None]
         uncond = None
@@ -451,8 +532,7 @@ class StableDiffusion:
 
         use_img2img = reference_image is not None and 0.0 < reference_image_strength < 1.0
         strength = float(reference_image_strength) if use_img2img else None
-        schedule = sched_lib.build_denoise_schedule(self.scheduler, num_steps,
-                                                    strength=strength, eta=eta)
+        schedule, t_embs = self._device_schedule(num_steps, strength, eta)
         inpaint = None
         if use_img2img:
             image01, image_tensor = imaging.preprocess_image(
@@ -468,11 +548,11 @@ class StableDiffusion:
                 pixel_mask, latent_mask = imaging.preprocess_mask(
                     inpaint_mask, self.img_height, self.img_width, mask_blur_strength)
                 inpaint = sampler.Inpaint(*(
-                    torch.as_tensor(a, device=self.device)
+                    to_device(a, self.device)
                     for a in (init_latent, noise, latent_mask, image01, pixel_mask)))
         else:
             latent0 = noise
-        latent0 = torch.as_tensor(latent0, device=self.device).to(self.compute_dtype)
+        latent0 = to_device(latent0, self.device).to(self.compute_dtype)
 
         hint = None
         if control_net_image is not None:
@@ -481,36 +561,55 @@ class StableDiffusion:
             cn_img = np.tile((np.asarray(arr, np.float32) / 255.0)[None], (batch_size, 1, 1, 1))
             hint = self._hint(cn_img)
 
-        t_embs = torch.as_tensor(sched_lib.timestep_embedding(schedule.timesteps),
-                                 device=self.device)
         step_noise = None
         if schedule.mode in sampler.NOISY_MODES or (schedule.mode == "tcd" and eta > 0.0):
             step_noise = draw_step_noise(key_seed, (schedule.num_steps, *latent0.shape))
-            step_noise = step_noise.to(self.device)
+            step_noise = to_device(step_noise, self.device)
         image, latent, *trajectory = sampler.generate(
             self.unet, self.decoder, latent0, context, uncond, t_embs, schedule.rows,
             float(unconditional_guidance_scale), float(guidance_rescale),
             controlnet=self.controlnet if hint is not None else None, hint=hint,
             inpaint=inpaint, callback=callback, mode=schedule.mode, step_noise=step_noise,
             v_prediction=self.prediction_type == "v", trace_latents=return_trajectory)
-        out = [image.cpu().numpy()]
+        out = [image]
         if return_latent:
-            out.append(latent.float().cpu().numpy())
+            out.append(latent.float())
         if return_trajectory:
-            out.append(trajectory[0].cpu().numpy())
+            out.append(trajectory[0])
+        if not _defer_fetch:
+            out = [fetch(t) for t in out]
         return out[0] if len(out) == 1 else tuple(out)
+
+    def generate_images(self, encoded_texts, seeds=None, **kwargs):
+        """Queued dispatch: every request of ``encoded_texts`` (contexts as
+        :meth:`generate_image` takes them, with ``seeds`` an optional list beside
+        them) is dispatched with ``_defer_fetch`` before any result is fetched, so
+        the host prepares and queues request i + 1 while the card computes request
+        i. The other keyword arguments go to :meth:`generate_image`; ``callback``
+        and ``return_latent`` are refused. Returns the uint8 image batches in
+        order."""
+        if kwargs.get("callback") is not None:
+            raise ValueError("generate_images does not support per-step callbacks")
+        if kwargs.get("return_latent"):
+            raise ValueError("generate_images returns images only")
+        handles = [self.generate_image(enc, seed=None if seeds is None else seeds[i],
+                                       _defer_fetch=True, **kwargs)
+                   for i, enc in enumerate(encoded_texts)]
+        return [fetch(h) for h in handles]
 
     @torch.inference_mode()
     def _encode_image(self, image_tensor: np.ndarray) -> np.ndarray:
         """(1, H, W, 3) in [-1, 1] -> the fp32 (1, H/8, W/8, 4) latent on the host;
-        the encoder runs in the compute dtype."""
-        x = torch.as_tensor(image_tensor, device=self.device).to(self.compute_dtype)
+        the encoder runs in the compute dtype. Bringing the latent to the host
+        waits for the card: the start latent is formed there, in the JAX
+        pipeline's rounding."""
+        x = to_device(image_tensor, self.device).to(self.compute_dtype)
         return self.encoder(x).float().cpu().numpy()
 
     @torch.inference_mode()
     def _hint(self, cn_img: np.ndarray) -> torch.Tensor:
         """(B, H, W, 3) in [0, 1] -> the HintNet's (B, 320, H/8, W/8), compute dtype."""
-        x = torch.as_tensor(cn_img, device=self.device).to(self.compute_dtype)
+        x = to_device(cn_img, self.device).to(self.compute_dtype)
         return self.controlnet.controlnet_cond_embedding(x)
 
     # ---- reference-compatible sub-model handles -----------------------------------

@@ -14,7 +14,7 @@ import oracle_utils
 from minsdtf_tpu.pipeline import StableDiffusion as JaxStableDiffusion
 from minsdtf_tpu.weights import convert as jconvert
 from minsdtf_tpu_torch import StableDiffusion
-from torch_port_utils import one_torch_thread, write_merges  # noqa: F401
+from torch_port_utils import one_torch_thread, write_clip_lora, write_merges  # noqa: F401
 
 TOL = 1e-5
 Q_PROJ = "text_model.encoder.layers.0.self_attn.q_proj"
@@ -69,23 +69,11 @@ def test_text_handles_match_jax(pipelines):
     np.testing.assert_allclose(uncond, pipe._unconditional_context().numpy(), rtol=TOL, atol=TOL)
 
 
-def _write_lora(path):
-    """A rank-4 kohya LoRA on layer 0's q_proj (the JAX compat test's)."""
-    rng = np.random.RandomState(3)
-    rank = 4
-    down = torch.from_numpy(rng.normal(0, 0.1, (rank, 768)).astype(np.float32))
-    up = torch.from_numpy(rng.normal(0, 0.1, (768, rank)).astype(np.float32))
-    name = "lora_te_text_model_encoder_layers_0_self_attn_q_proj"
-    torch.save({f"{name}.lora_down.weight": down, f"{name}.lora_up.weight": up,
-                f"{name}.alpha": torch.tensor(2.0)}, path)
-    return str(path), (up @ down).numpy() * (2.0 / rank)
-
-
 def test_runtime_lora_switch(pipelines, tmp_path):
     """set_lora merges, rescales and removes the deltas against the cached base
     checkpoint; the contexts follow the JAX pipeline's."""
     jpipe, pipe = pipelines
-    lora_path, delta = _write_lora(tmp_path / "lora.pt")
+    lora_path, delta = write_clip_lora(tmp_path / "lora.pt")
     base = pipe.text_model.get_submodule(Q_PROJ).weight.detach().clone()
     for scale in (1.0, 0.5, None):
         for p in (jpipe, pipe):
@@ -106,7 +94,7 @@ def test_runtime_lora_switch(pipelines, tmp_path):
 
 def test_lora_path_at_construction_merges(files, pipelines, tmp_path):
     te, bpe = files
-    lora_path, _ = _write_lora(tmp_path / "lora.pt")
+    lora_path, _ = write_clip_lora(tmp_path / "lora.pt")
     pipe = StableDiffusion(64, 64, text_encoder_ckpt=te, lora_path=lora_path,
                            compute_dtype=torch.float32, device="cpu", bpe_path=bpe)
     jpipe = JaxStableDiffusion(64, 64, text_encoder_ckpt=te, lora_path=lora_path,
@@ -147,7 +135,7 @@ def test_missing_lora_and_lora_without_a_checkpoint_raise(files, tmp_path):
     with pytest.raises(FileNotFoundError, match="lora"):
         StableDiffusion(64, 64, text_encoder_ckpt=te, lora_path=str(tmp_path / "none.pt"),
                         device="cpu")
-    lora_path, _ = _write_lora(tmp_path / "lora.pt")
+    lora_path, _ = write_clip_lora(tmp_path / "lora.pt")
     with pytest.raises(ValueError, match="text_encoder checkpoint"):
         StableDiffusion(64, 64, lora_path=lora_path, device="cpu")
     pipe = StableDiffusion(64, 64, device="cpu")

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions; the
 VAE encoder and ControlNet that run them on the img2img and ControlNet paths,
-against the same modules on the CPU; and the step loop at batch 2 in bf16 on the
-card against fp32 on the CPU.
+against the same modules on the CPU; the step loop at batch 2 in bf16 on the
+card against fp32 on the CPU; and a merged batch of 2 against batch 1 in bf16.
 
 Every test here needs an NVIDIA card and ``nvcc`` (Hopper, ``sm_90a``) and skips
 where torch sees no CUDA device. The JAX package is not imported, so the file also
@@ -19,11 +19,12 @@ import torch
 import chip_smoke
 from minsdtf_tpu_torch.ops import attention as tattn
 from minsdtf_tpu_torch.ops import flash_attention as tfa
+from minsdtf_tpu_torch.tools import selfcheck
 
 pytestmark = pytest.mark.cuda
 
-# (rtol, atol): the on-card smoke run's limits; chip_smoke.py says why.
-TOL = chip_smoke.TOL
+# (rtol, atol): the on-card smoke run's limits; the selfcheck module says why.
+TOL = selfcheck.TOL
 
 
 @pytest.fixture
@@ -231,6 +232,72 @@ def test_kernel_matches_plain_at_the_batch_shapes(cuda, case):
     ok, _, line = chip_smoke.check_case(case)
     assert wrapper.launches == before + 1
     assert ok, line
+
+
+@pytest.mark.parametrize("case", chip_smoke.SERVE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_kernel_matches_plain_at_the_serve_shapes(cuda, case):
+    """The shapes of the server's merged batches of 2 and 4 images, as phase 3 of
+    the smoke run checks them."""
+    wrapper = getattr(tfa, f"{case[0]}_attention")
+    before = wrapper.launches
+    ok, _, line = chip_smoke.check_case(case)
+    assert wrapper.launches == before + 1
+    assert ok, line
+
+
+def test_bf16_merged_batch_of_2_matches_batch_1(cuda, tmp_path):
+    """Two requests merged as the server merges them (stacked contexts, each seed's
+    noise row) at 256x256 with a small UNet and VAE in bf16, against each at batch
+    1. The batch changes the order of the card's bf16 sums, so the two are two
+    bf16 roundings of one fp32 result (the smoke run's phase 9b reads up to 21 of
+    255 apart at full width, in nearly every pixel): each differs from the other
+    by no more than twice the batch-1 run's own distance from fp32, in the
+    latents' relative rms and in the images' largest difference."""
+    from minsdtf_tpu_torch import StableDiffusion
+    from minsdtf_tpu_torch import rng as trng
+    from minsdtf_tpu_torch.models import clip as tclip
+    from minsdtf_tpu_torch.models import unet as tunet
+    from minsdtf_tpu_torch.models import vae as tvae
+    from minsdtf_tpu_torch.models.common import cast_weights_
+
+    small = dict(widths=(320, 64, 128, 128), temb_dim=128)
+    modules = dict(_unet=tunet.fuse_attention_projections(tunet.init("cpu", seed=0, **small)),
+                   _decoder=tvae.init_decoder("cpu", seed=2, dec_widths=(192, 64, 32, 32)),
+                   _text_model=tclip.init("cpu", seed=1))
+    bpe = chip_smoke.synthetic_merges(str(tmp_path))
+    gen = torch.Generator().manual_seed(5)
+    contexts = torch.randn(2, 77, 768, generator=gen)
+    seeds = (7, 8)
+    kw = dict(num_steps=3, unconditional_guidance_scale=7.5, guidance_rescale=0.7,
+              return_latent=True)
+
+    def run(dtype):
+        pipe = StableDiffusion(256, 256, bpe_path=bpe, compute_dtype=dtype, device=cuda)
+        for name, module in modules.items():
+            setattr(pipe, name, cast_weights_(module.to(cuda), dtype).eval())
+        merged = pipe.generate_image(
+            contexts, batch_size=2,
+            diffusion_noise=np.concatenate([trng.stateless_normal((1, 32, 32, 4), s)
+                                            for s in seeds]), **kw)
+        singles = [pipe.generate_image(contexts[i], seed=s, **kw) for i, s in enumerate(seeds)]
+        return merged, tuple(np.concatenate(parts) for parts in zip(*singles))
+
+    (img_m, lat_m), (img_1, lat_1) = run(torch.bfloat16)
+    _, (img_32, lat_32) = run(torch.float32)
+
+    def rel_rms(a, b):
+        return float(np.sqrt(np.square(a - b).mean() / np.square(b).mean()))
+
+    def max_diff(a, b):
+        return int(np.abs(a.astype(int) - b.astype(int)).max())
+
+    assert img_m.shape == img_1.shape == (2, 256, 256, 3)
+    print(f"merged vs batch 1, bf16: latent rel rms {rel_rms(lat_m, lat_1):.3e} (batch 1 bf16 "
+          f"vs fp32 {rel_rms(lat_1, lat_32):.3e}), image max |diff| {max_diff(img_m, img_1)} "
+          f"(bf16 vs fp32 {max_diff(img_1, img_32)}), share of values that differ "
+          f"{float((img_m != img_1).mean()):.6f}")
+    assert rel_rms(lat_m, lat_1) <= 2 * rel_rms(lat_1, lat_32)
+    assert max_diff(img_m, img_1) <= 2 * max_diff(img_1, img_32)
 
 
 def _sampler_run(device, dtype, unet, mode):

@@ -60,7 +60,9 @@ def test_import_leaves_out_jax_and_the_jax_package():
         "import minsdtf_tpu_torch\n"
         "for m in pkgutil.walk_packages(minsdtf_tpu_torch.__path__, 'minsdtf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for m in ('weights.mapping', 'weights.lora', 'weights.fetch', 'tools.convert'):\n"
+        "for m in ('weights.mapping', 'weights.lora', 'weights.fetch', 'tools.convert',\n"
+        "          'tools.serve', 'tools.generate', 'tools.golden', 'tools.selfcheck',\n"
+        "          'profiling', 'apps.common', 'apps.app', 'apps.text_to_image'):\n"
         "    assert 'minsdtf_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'minsdtf_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'minsdtf_tpu.'))]\n"

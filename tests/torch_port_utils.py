@@ -67,6 +67,18 @@ def write_merges(path) -> str:
     return str(path)
 
 
+def write_clip_lora(path):
+    """A rank-4 kohya LoRA on layer 0's q_proj (the JAX compat test's)."""
+    rng = np.random.RandomState(3)
+    rank = 4
+    down = torch.from_numpy(rng.normal(0, 0.1, (rank, 768)).astype(np.float32))
+    up = torch.from_numpy(rng.normal(0, 0.1, (768, rank)).astype(np.float32))
+    name = "lora_te_text_model_encoder_layers_0_self_attn_q_proj"
+    torch.save({f"{name}.lora_down.weight": down, f"{name}.lora_up.weight": up,
+                f"{name}.alpha": torch.tensor(2.0)}, path)
+    return str(path), (up @ down).numpy() * (2.0 / rank)
+
+
 def perturb_norms(params, seed: int):
     """Norm scales to N(1, 0.3) and biases to N(0.1, 0.3), in place. With scale 1
     and bias 0 the CLIP output's per-token mean is ~1e-10, and the LPW
