@@ -35,6 +35,15 @@ against each request's batch-1 image, and a profile of the burst
 (``profile_serve.txt``; 9b); ``warm_text``, a prompt-cache hit and ``set_lora``
 emptying the cache (9c); ``tools.golden`` twice and ``tools.selfcheck`` (9d).
 
+Phase group 10 trains: the full-width SD1.5 UNet (fp32, fused, seed 0) takes one
+step and five timed steps of the port's AdamW on a batch of 4 64x64 latents
+(10a: s/step, samples/s, peak memory; finite falling losses, finite nonzero
+gradients, no kernel launch, and a TransformerBlock on the default route with
+grad refused by the kernels' wrappers); two steps of a small UNet at a 32x32
+latent on the card and on the CPU agree, each device's AdamW equals optax's on
+its own gradients, and a card run with torch's default weight decay fails that
+check (10b).
+
 Exits non-zero on any failure, when no card is visible, or when the port's package
 is not beside this file. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel with its
@@ -1298,6 +1307,274 @@ def phase_tools(bpe: str, directory: str, ckpt_path: str) -> dict:
     return {"ok": all(checks.values())}
 
 
+TRAIN_BATCH = 4  # 10a: the 512x512 fine-tuning shape, 64x64 latents
+TRAIN_TIMED_STEPS = 5  # after the first step, on the same batch
+TRAIN_SMALL = dict(widths=(32, 64, 128, 128), temb_dim=128)
+TRAIN_SMALL_LR = 1e-3  # 10b: large enough that two steps move the loss clearly
+# 10b, fp32 card against fp32 CPU (TF32 off). The losses agree to ~1e-7
+# relative. A gradient sums 1e3..1e5 products in another order on each device:
+# within 1e-3 elementwise above 1e-4 of the tensor's largest element, and above a
+# floor of 1e-6 of the model's largest gradient (some gradients are zero in exact
+# arithmetic, a bias before a GroupNorm of one channel per group at width 32, and
+# hold fp32 noise of ~1e-8).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL_REL, TRAIN_GRAD_ATOL_MODEL = 1e-3, 1e-4, 1e-6
+# Each device's AdamW, fed its own gradients of both steps, against optax.adamw's
+# update in float64 numpy from the same initial weights: fp32 rounding of the
+# weights (|p| < 1) and of the update (at most a few lr), a few ulps. Torch's
+# default weight decay, 1e-2 where optax's is 1e-4, moves a weight by ~2e-5·|p|
+# more over two steps; 10b runs it on the card as a control and fails unless this
+# check rejects it.
+TRAIN_OPT_RTOL, TRAIN_OPT_ATOL = 1e-6, 1e-8
+# The weights after two steps, card against CPU: Adam's first step
+# m̂/(√v̂+ε) = g/(|g|+ε) turns a gradient within rounding of zero into ±1 either
+# way, so a few weights end up ~lr apart. At most TRAIN_PARAM_SHARE of them may
+# be more than lr/100 apart: the card read 4.45e-4 to 4.69e-4 of them, and the
+# JAX package on the CPU 4.4e-4.
+TRAIN_PARAM_SHARE = 1e-3
+
+
+def grads_finite_and_nonzero(model) -> list:
+    """The names of the parameters whose ``.grad`` is missing, not finite, or all
+    zero."""
+    named = [(n, p.grad) for n, p in model.named_parameters()]
+    missing = [n for n, g in named if g is None]
+    present = [(n, g) for n, g in named if g is not None]
+    ok = torch.stack([torch.isfinite(g).all() & (g != 0).any() for _, g in present]).tolist()
+    return missing + [n for (n, _), good in zip(present, ok) if not good]
+
+
+def refuses_gradient(block, x, context) -> tuple:
+    """One forward and backward of ``block`` on the default route with grad
+    enabled: (the wrappers' RuntimeError message or None, the launches it made)."""
+    zero_launches()
+    message = None
+    try:
+        block(x, context).sum().backward()
+    except RuntimeError as e:
+        message = str(e)
+    return message, read_launches()
+
+
+def train_step_flops(batch: int, latent_hw: int) -> float:
+    """The floating-point operations of one forward and backward of the full-width
+    fused UNet on the plain attention path, counted by
+    ``torch.utils.flop_counter`` on meta tensors (matmuls, convolutions and their
+    gradients; the elementwise work and AdamW are not counted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.ops import attention
+
+    with torch.device("meta"):
+        unet = unet_lib.fuse_attention_projections(unet_lib.UNet())
+        latents = torch.zeros(batch, latent_hw, latent_hw, 4)
+        t_emb = torch.zeros(batch, unet.time_embedding.linear_1.in_features)
+        context = torch.zeros(batch, 77, 768)
+    with attention.plain_scope(), FlopCounterMode(display=False) as counter:
+        unet(latents, t_emb, context).square().mean().backward()
+    return float(counter.get_total_flops())
+
+
+def phase_train_full(card: str):
+    """10a: the SD1.5 UNet at full width (seed 0, fp32, fused as the pipeline fuses
+    it) takes one step and then TRAIN_TIMED_STEPS timed steps of the default
+    AdamW on one batch of TRAIN_BATCH 64x64 latents. Every loss finite and the
+    last below the first; after the first backward every gradient finite and not
+    all zero; K1 and K2 launch 0 times; a TransformerBlock at (4, 4096, 320)
+    on the default route with grad enabled is refused, with the counters
+    unmoved."""
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.training import train_step as ts
+
+    torch.cuda.empty_cache()
+    unet = unet_lib.fuse_attention_projections(unet_lib.init("cuda", seed=0))
+    n_params = sum(p.numel() for p in unet.parameters())
+    init_fn, step_fn = ts.make_train_step()
+    opt = init_fn(unet)
+    lr = opt.param_groups[0]["lr"]
+    batch = ts.sample_batch(TRAIN_BATCH, latent_hw=64, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    losses = [step_fn(unet, opt, batch)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    bad_grads = grads_finite_and_nonzero(unet)
+    qkv_names = [n for n, _ in unet.named_parameters() if n.endswith("attn1.to_qkv.weight")]
+    samples = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step_fn(unet, opt, batch))
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [loss.item() for loss in losses]
+    s_per_step = statistics.median(samples)
+    flops = train_step_flops(TRAIN_BATCH, 64)
+    bound_s = flops / PEAK_FLOPS[torch.float32]
+    log(f"phase 10a full-width UNet training ({n_params} parameters, fp32, TF32 off, "
+        f"AdamW lr {lr} betas {opt.param_groups[0]['betas']} eps {opt.param_groups[0]['eps']} "
+        f"weight decay {opt.param_groups[0]['weight_decay']}), batch {TRAIN_BATCH} at 64x64: "
+        f"first step {first_s:.4f} s, then median {s_per_step:.4f} s/step of "
+        f"{[round(t, 4) for t in samples]}, {TRAIN_BATCH / s_per_step:.4f} samples/s, peak "
+        f"memory {peak_gb:.3f} GB ({resident_gb:.3f} GB allocated before the first step), "
+        f"losses {losses}, launches {launches} | {card}")
+    log(f"phase 10a matmul and convolution operations of a step: {flops / 1e12:.4f} TFLOP "
+        f"(flop counter); at the fp32 peak {PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s "
+        f"{bound_s:.4f} s, share {bound_s / s_per_step:.4f} of the median step")
+
+    block = unet.down_blocks[0].attentions[0].transformer_blocks[0]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(4, 4096, 320, generator=gen, device="cuda")
+    context = torch.randn(4, 77, 768, generator=gen, device="cuda")
+    refusal, refusal_launches = refuses_gradient(block, x, context)
+    log(f"phase 10a a TransformerBlock at (4, 4096, 320) on the default route with grad: "
+        f"{'RuntimeError: ' + refusal if refusal else 'no error'}; launches {refusal_launches}")
+    checks = {
+        "every loss finite": bool(np.isfinite(losses).all()),
+        "the last loss below the first": losses[-1] < losses[0],
+        "every gradient finite and not all zero": not bad_grads,
+        f"the {len(qkv_names)} attn1.to_qkv among them": len(qkv_names) == 16
+        and not set(qkv_names) & set(bad_grads),
+        "K1 and K2 launched 0 times": launches == {"onepass": 0, "online": 0},
+        "the kernels refuse a gradient": refusal is not None and "no backward" in refusal,
+        "the refused call launched nothing": refusal_launches == {"onepass": 0, "online": 0},
+    }
+    log(f"phase 10a checks: {checks}" + (f"; bad gradients {bad_grads[:8]}" if bad_grads else ""))
+    del unet, opt, batch, block, x, context
+    torch.cuda.empty_cache()
+    return all(checks.values()), dict(
+        parameters=n_params, batch=TRAIN_BATCH, latent_hw=64, lr=lr, losses=losses,
+        first_step_s=first_s, s_per_step=s_per_step, s_per_step_samples=samples,
+        step_flops=flops, fp32_bound_s=bound_s,
+        samples_per_s=TRAIN_BATCH / s_per_step, peak_gb=peak_gb, resident_gb=resident_gb,
+        launches=launches)
+
+
+def train_small(device: str, optimizer=None):
+    """Two AdamW steps (lr TRAIN_SMALL_LR; ``optimizer`` replaces it for the
+    control) of the small fused UNet (seed 0, made on the CPU and moved) on one
+    batch of 2 at 32x32 (level 0's self-attention has 1024 tokens, which the
+    default route sends to K1), drawn on the CPU. Returns, on the CPU: the
+    losses, the initial weights, the gradients of each step, the weights after
+    step 2, and the launches the steps made."""
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.training import train_step as ts
+
+    unet = unet_lib.fuse_attention_projections(unet_lib.init("cpu", seed=0, **TRAIN_SMALL))
+    initial = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    unet.to(device)
+    batch = ts.sample_batch(2, latent_hw=32, device="cpu",
+                            generator=torch.Generator().manual_seed(1))
+    batch = ts.TrainBatch(*(t.to(device) for t in batch))
+    init_fn, step_fn = ts.make_train_step(
+        optimizer or (lambda params: ts.adamw(params, lr=TRAIN_SMALL_LR)))
+    opt = init_fn(unet)
+    zero_launches()
+    losses, grads = [], []
+    for _ in range(2):
+        losses.append(step_fn(unet, opt, batch).item())
+        grads.append({n: p.grad.cpu() for n, p in unet.named_parameters()})
+    params = {n: p.detach().cpu() for n, p in unet.named_parameters()}
+    return dict(losses=losses, initial=initial, grads=grads, params=params,
+                launches=read_launches())
+
+
+def adamw_error(run: dict, lr: float = TRAIN_SMALL_LR) -> float:
+    """The largest error of ``run``'s weights after its steps, over
+    TRAIN_OPT_ATOL + TRAIN_OPT_RTOL·|want|, where ``want`` is optax.adamw(lr)
+    (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4) applied in float64 numpy to
+    the run's initial weights and its own gradients:
+    p <- p - lr·(m̂/(√v̂+ε) + 1e-4·p)."""
+    b1, b2, eps, decay = 0.9, 0.999, 1e-8, 1e-4
+    worst = 0.0
+    for name, p0 in run["initial"].items():
+        p = p0.double().numpy()
+        m, v = np.zeros_like(p), np.zeros_like(p)
+        for t, grads in enumerate(run["grads"], 1):
+            g = grads[name].double().numpy()
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            p = p - lr * ((m / (1 - b1 ** t)) / (np.sqrt(v / (1 - b2 ** t)) + eps) + decay * p)
+        err = np.abs(run["params"][name].double().numpy() - p)
+        worst = max(worst, float((err / (TRAIN_OPT_ATOL + TRAIN_OPT_RTOL * np.abs(p))).max()))
+    return worst
+
+
+def param_share(run: dict, cpu: dict) -> float:
+    """The share of the weights after step 2 more than lr/100 apart from the CPU's."""
+    diffs = torch.cat([(run["params"][n] - p).abs().flatten() for n, p in cpu["params"].items()])
+    return float((diffs > TRAIN_SMALL_LR / 100).float().mean())
+
+
+def compare_small_training() -> tuple:
+    """10b: :func:`train_small` on the card against the CPU within the TRAIN_*
+    tolerances, each device's AdamW against optax's update on its own gradients,
+    and a control on the card, AdamW with torch's default weight decay, that the
+    optimizer check must reject. Returns (passed, numbers)."""
+    card, cpu = train_small("cuda"), train_small("cpu")
+    control = train_small("cuda", lambda params: torch.optim.AdamW(
+        params, lr=TRAIN_SMALL_LR, betas=(0.9, 0.999), eps=1e-8))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    cpu_grads = cpu["grads"][0]
+    floor = TRAIN_GRAD_ATOL_MODEL * max(float(g.abs().max()) for g in cpu_grads.values())
+    grad_ratio = 0.0  # the largest error over its tolerance
+    for name, want in cpu_grads.items():
+        atol = max(TRAIN_GRAD_ATOL_REL * float(want.abs().max()), floor)
+        limit = atol + TRAIN_GRAD_RTOL * want.abs()
+        grad_ratio = max(grad_ratio, float(((card["grads"][0][name] - want).abs() / limit).max()))
+    param_max = max(float((card["params"][n] - p).abs().max()) for n, p in cpu["params"].items())
+    numbers = dict(
+        card_losses=card["losses"], cpu_losses=cpu["losses"], loss_rel_err=loss_err,
+        grad_err_over_tol=grad_ratio, adamw_err_over_tol_card=adamw_error(card),
+        adamw_err_over_tol_cpu=adamw_error(cpu),
+        adamw_err_over_tol_control=adamw_error(control), param_max_abs_err=param_max,
+        param_share_beyond_lr_100=param_share(card, cpu),
+        param_share_beyond_lr_100_control=param_share(control, cpu),
+        parameters=sum(p.numel() for p in cpu["params"].values()), launches=card["launches"])
+    checks = {
+        f"losses within rtol {TRAIN_LOSS_RTOL}": loss_err <= TRAIN_LOSS_RTOL,
+        "the loss falls": card["losses"][-1] < card["losses"][0],
+        "every gradient within its tolerance": grad_ratio <= 1.0,
+        "the card's AdamW is optax's": numbers["adamw_err_over_tol_card"] <= 1.0,
+        "the CPU's AdamW is optax's": numbers["adamw_err_over_tol_cpu"] <= 1.0,
+        "the control (weight decay 1e-2) is rejected": numbers["adamw_err_over_tol_control"] > 1.0,
+        f"at most {TRAIN_PARAM_SHARE} of the weights beyond lr/100":
+            numbers["param_share_beyond_lr_100"] <= TRAIN_PARAM_SHARE,
+        "K1 and K2 launched 0 times on the card": card["launches"] == {"onepass": 0, "online": 0},
+    }
+    return all(checks.values()), dict(numbers, checks=checks)
+
+
+def phase_training(card: str):
+    """Phase group 10: 10a and 10b. Returns the numbers for ``result.json``, or
+    None if a check failed."""
+    ok_full, full = phase_train_full(card)
+    ok_small, small = compare_small_training()
+    log(f"phase 10b small fp32 training (widths {TRAIN_SMALL['widths']}, batch 2 at 32x32, "
+        f"lr {TRAIN_SMALL_LR}, 2 steps), card vs CPU: losses {small['card_losses']} against "
+        f"{small['cpu_losses']} (max rel err {small['loss_rel_err']:.3e}, tol "
+        f"{TRAIN_LOSS_RTOL}); gradients after step 1: largest error / tolerance "
+        f"{small['grad_err_over_tol']:.3e}; AdamW against optax's on each run's own "
+        f"gradients, largest error / tolerance (rtol {TRAIN_OPT_RTOL}, atol "
+        f"{TRAIN_OPT_ATOL}): card {small['adamw_err_over_tol_card']:.3e}, CPU "
+        f"{small['adamw_err_over_tol_cpu']:.3e}, control with weight decay 1e-2 on the card "
+        f"{small['adamw_err_over_tol_control']:.3e}; weights after step 2, card against CPU: "
+        f"max |diff| {small['param_max_abs_err']:.3e}, share beyond lr/100 "
+        f"{small['param_share_beyond_lr_100']:.3e} of {small['parameters']} (tol "
+        f"{TRAIN_PARAM_SHARE}; the control {small['param_share_beyond_lr_100_control']:.3e}); "
+        f"launches {small['launches']}; checks {small['checks']}")
+    if not (ok_full and ok_small):
+        return None
+    del small["checks"]
+    return {"full_width": full, "small_card_vs_cpu": small}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1374,6 +1651,10 @@ def main() -> int:
             mark("phases 9a-9d")
         finally:
             shutil.rmtree(directory)
+    training = phase_training(card)
+    if training is None:
+        return 1
+    mark("phases 10a-10b")
     new_paths.update(samplers)
 
     rows = []
@@ -1388,6 +1669,7 @@ def main() -> int:
                      **{f"launches_{path}": n[name] for path, n in ckpt_launches.items()},
                      **{f"launches_{path}": serving[path]["launches"][name]
                         for path in ("generate_images", "serve")},
+                     "launches_training": training["full_width"]["launches"][name],
                      "max_abs_err": errors[name],
                      **{k: main_shape[k] for k in ("ms", "loop_ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms", "shape")},
@@ -1399,7 +1681,8 @@ def main() -> int:
                    **{f"{key}_{path}": value for path, (_, _, warm, peak, _) in new_paths.items()
                       for key, value in (("s_per_img", statistics.median(warm)),
                                          ("s_per_img_samples", warm), ("peak_gb", peak))},
-                   "checkpoints": ckpt_numbers, "serving": serving, "kernels": rows}, f, indent=1)
+                   "checkpoints": ckpt_numbers, "serving": serving, "training": training,
+                   "kernels": rows}, f, indent=1)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

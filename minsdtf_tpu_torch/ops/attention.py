@@ -1,18 +1,37 @@
 """Multi-head attention over ``(B, S, H*D)`` tensors.
 
-Heads are split as views (no copy); :func:`flash_attention.route` sends each call
-to K1, K2 or :func:`plain_attention`. The plain path serves what never reaches a
-kernel: cross-attention (kv = 77), the 16x16 and 8x8 UNet levels (kv < 512) and
-CLIP's causal attention. Softmax statistics are fp32 whatever the compute dtype.
+Heads are split as views (no copy). :func:`flash_attention.route` sends each
+call to K1, K2 or :func:`plain_attention`; the plain path serves what never
+reaches a kernel: cross-attention (kv = 77), the 16x16 and 8x8 UNet levels
+(kv < 512) and CLIP's causal attention. Inside :func:`plain_scope` every call
+runs :func:`plain_attention` instead: it is the one path with a backward, so the
+train step selects it by name. The scope holds for the current thread (or task)
+only. Softmax statistics are fp32 whatever the compute dtype.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+from typing import Iterator, Optional
 
 import torch
 
 from minsdtf_tpu_torch.ops import flash_attention as fa
+
+_PLAIN = contextvars.ContextVar("minsdtf_plain_attention", default=False)
+
+
+@contextlib.contextmanager
+def plain_scope() -> Iterator[None]:
+    """Every attention call in the body of a ``with`` block, in this thread,
+    runs :func:`plain_attention`; the previous setting comes back on exit, also
+    when the body raises. Other threads keep routing to the kernels."""
+    token = _PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -41,7 +60,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_
     qh = q.unflatten(-1, (num_heads, d))
     kh = k.unflatten(-1, (num_heads, d))
     vh = v.unflatten(-1, (num_heads, d))
-    impl = fa.route(sq, sk, d, causal)
+    impl = "plain" if _PLAIN.get() else fa.route(sq, sk, d, causal)
     if impl == "onepass":
         out = fa.onepass_attention(qh, kh, vh, scale)
     elif impl == "online":

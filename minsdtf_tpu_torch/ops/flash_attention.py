@@ -24,7 +24,13 @@ versions, and the routing contract.
 The source's header says what each kernel's design does about its bound.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and computes the plain
-version for CPU tensors; each wrapper counts its launches in ``.launches``.
+version for CPU tensors; each wrapper counts its launches in ``.launches``. The
+kernels have no backward, and neither have the JAX kernels they port: on CUDA
+tensors a wrapper raises ``RuntimeError`` when autograd would record its output
+(grad mode on and q, k or v requiring grad), since that output would carry no
+gradient. Training selects the plain path by name
+(:func:`minsdtf_tpu_torch.ops.attention.plain_scope`); the CPU branch stays the
+differentiable plain version.
 Tensors are ``(B, S, H, D)`` and may be strided, with a contiguous D axis. The
 bf16 kernels are built for head widths 40, 80 and 160 (the SD1.5 levels over 8
 heads), and K2's also for 512 (the VAE), and read 16-byte rows: any other width,
@@ -169,6 +175,18 @@ def _check(q, k, v, max_d: int) -> None:
         raise ValueError("empty sequence")
 
 
+def _refuse_grad(name: str, q, k, v) -> None:
+    """Raises if autograd would record the kernel's output: it is written through a
+    raw pointer and has no backward, so every projection before it would get no
+    gradient and an optimizer would skip those weights without a word."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward (nor has the JAX kernel it ports), "
+            "so its output would carry no gradient. Select the plain path for training "
+            "with minsdtf_tpu_torch.ops.attention.plain_scope(), or call it under "
+            "torch.no_grad() / torch.inference_mode().")
+
+
 def _launch(fn, q, k, v, scale: float, *extra) -> torch.Tensor:
     b, sq, h, d = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -213,6 +231,7 @@ def onepass_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return onepass_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"onepass_attention: unsupported device {q.device}")
+    _refuse_grad("onepass_attention", q, k, v)
     _check(q, k, v, ONEPASS_MAX_D)
     if q.dtype == torch.bfloat16:
         out = _launch_bf16(_launch_onepass, q, k, v, scale, onepass_bf16_width(q.shape[-1]))
@@ -243,6 +262,7 @@ def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return online_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"online_attention: unsupported device {q.device}")
+    _refuse_grad("online_attention", q, k, v)
     _check(q, k, v, ONLINE_MAX_D)
     if q.dtype == torch.bfloat16:
         k, scale = positive_scale(k, scale)

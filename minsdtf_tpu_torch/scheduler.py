@@ -11,6 +11,9 @@ Host-side numpy, a copy of the JAX package's scheduler:
 2. :class:`DenoiseSchedule` holds every per-step scalar the sampling update needs,
    precomputed on the host, so the step loop in :mod:`minsdtf_tpu_torch.sampler`
    reads plain floats. Its ``mode`` names the update the loop applies.
+3. :func:`timestep_embedding` on the host for the sampler's fixed timesteps, and
+   :func:`timestep_embedding_traced` on a tensor of timesteps drawn per example
+   (training), on any device.
 
 Schedule math: "scaled-linear" betas,
 ``alphas_cumprod = cumprod(1 - linspace(sqrt(b0), sqrt(b1), T)**2)``;
@@ -20,9 +23,11 @@ Schedule math: "scaled-linear" betas,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def make_alphas_cumprod(
@@ -605,7 +610,29 @@ def build_denoise_schedule(
 def timestep_embedding(timesteps, dim: int = 320, max_period: float = 10000.0) -> np.ndarray:
     """Sinusoidal timestep embedding, ``concat([cos, sin])`` ordering, host numpy.
     ``timesteps`` is a scalar or (n,) array."""
-    half = dim // 2
-    freqs = np.exp(-np.log(max_period) * np.arange(half, dtype=np.float32) / half)
-    args = np.asarray(timesteps, dtype=np.float32)[..., None] * freqs
+    args = np.asarray(timesteps, dtype=np.float32)[..., None] * _frequencies(dim // 2, max_period)
     return np.concatenate([np.cos(args), np.sin(args)], axis=-1).astype(np.float32)
+
+
+def _frequencies(half: int, max_period: float) -> np.ndarray:
+    """``exp(-ln(max_period) * i / half)`` for i < half, from an fp32 ramp (numpy
+    gives fp64), as the JAX package computes it on the host."""
+    return np.exp(-np.log(max_period) * np.arange(half, dtype=np.float32) / half)
+
+
+def timestep_embedding_traced(timesteps: torch.Tensor, dim: int = 320,
+                              max_period: float = 10000.0) -> torch.Tensor:
+    """:func:`timestep_embedding` of an int tensor of timesteps, on its device:
+    (B,) -> (B, dim) fp32. The frequencies come from numpy, rounded to fp32, as
+    in the JAX package's ``timestep_embedding_traced``; the products, cos and sin
+    run on the device."""
+    freqs = _device_frequencies(dim // 2, max_period, timesteps.device)
+    args = timesteps.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_frequencies(half: int, max_period: float, device: torch.device) -> torch.Tensor:
+    """:func:`_frequencies` in fp32 on ``device``, copied there once: a copy from
+    pageable host memory would wait for every kernel queued before it."""
+    return torch.from_numpy(_frequencies(half, max_period).astype(np.float32)).to(device)

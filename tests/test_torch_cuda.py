@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions; the
 VAE encoder and ControlNet that run them on the img2img and ControlNet paths,
 against the same modules on the CPU; the step loop at batch 2 in bf16 on the
-card against fp32 on the CPU; and a merged batch of 2 against batch 1 in bf16.
+card against fp32 on the CPU; a merged batch of 2 against batch 1 in bf16; the
+kernels' refusal of a gradient they cannot give, and small-width training steps
+on the card against the CPU.
 
 Every test here needs an NVIDIA card and ``nvcc`` (Hopper, ``sm_90a``) and skips
 where torch sees no CUDA device. The JAX package is not imported, so the file also
@@ -388,3 +390,42 @@ def test_checkpoint_files_load_on_the_card_as_assigned_modules(cuda, tmp_path):
         assert tfa.online_attention.launches > before
         assert image.shape == (1, 256, 256, 3) and image.max() > image.min()
         assert np.array_equal(image, call(assigned))
+
+
+@pytest.mark.parametrize("kernel", ["onepass", "online"])
+def test_kernels_refuse_a_gradient(cuda, kernel):
+    """The kernels have no backward: with grad mode on and an input that requires
+    grad, the wrapper raises before it launches."""
+    wrapper = getattr(tfa, f"{kernel}_attention")
+    q, k, v = _qkv(1, 512, 512, 2, 40, torch.float32, "contiguous", cuda)
+    before = wrapper.launches
+    for needs_grad in ((q,), (k,), (v,), (q, k, v)):
+        args = [t.detach().requires_grad_(any(t is n for n in needs_grad)) for t in (q, k, v)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            wrapper(*args, 0.1)
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("mode", ["inference_mode", "no_grad"])
+@pytest.mark.parametrize("kernel", ["onepass", "online"])
+def test_kernels_launch_without_gradients(cuda, kernel, mode):
+    wrapper = getattr(tfa, f"{kernel}_attention")
+    q, k, v = (t.detach().requires_grad_() for t in _qkv(
+        1, 512, 512, 2, 40, torch.float32, "contiguous", cuda))
+    before = wrapper.launches
+    with getattr(torch, mode)():
+        got = wrapper(q, k, v, 0.1)
+        torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    rtol, atol = TOL[torch.float32]
+    with torch.no_grad():
+        want = getattr(tfa, f"{kernel}_attention_plain")(q, k, v, 0.1)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+def test_small_train_steps_on_the_card_match_the_cpu(cuda):
+    """Phase 10b: two AdamW steps of the small fused UNet at a 32x32 latent on the
+    card and on the CPU, within the ``chip_smoke.TRAIN_*`` tolerances; the step
+    takes the plain attention path, so no kernel launches."""
+    ok, numbers = chip_smoke.compare_small_training()
+    assert ok, numbers

@@ -62,10 +62,11 @@ def test_import_leaves_out_jax_and_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "for m in ('weights.mapping', 'weights.lora', 'weights.fetch', 'tools.convert',\n"
         "          'tools.serve', 'tools.generate', 'tools.golden', 'tools.selfcheck',\n"
-        "          'profiling', 'apps.common', 'apps.app', 'apps.text_to_image'):\n"
+        "          'profiling', 'apps.common', 'apps.app', 'apps.text_to_image',\n"
+        "          'training.train_step'):\n"
         "    assert 'minsdtf_tpu_torch.' + m in sys.modules, m\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'minsdtf_tpu')\n"
-        "       or m.startswith(('jax.', 'jaxlib.', 'minsdtf_tpu.'))]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'optax', 'minsdtf_tpu')\n"
+        "       or m.startswith(('jax.', 'jaxlib.', 'optax.', 'minsdtf_tpu.'))]\n"
         "print(bad)\n"
     )
     root = os.path.dirname(PORT_DIR)
@@ -85,7 +86,7 @@ def test_sources_import_neither_jax_nor_the_jax_package():
                 words = line.split()
                 if words[:1] in (["import"], ["from"]) and len(words) > 1:
                     module = words[1].split(".")[0]
-                    assert module not in ("jax", "jaxlib", "minsdtf_tpu"), (path, line)
+                    assert module not in ("jax", "jaxlib", "optax", "minsdtf_tpu"), (path, line)
 
 
 @pytest.fixture
