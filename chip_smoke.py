@@ -44,6 +44,20 @@ latent on the card and on the CPU agree, each device's AdamW equals optax's on
 its own gradients, and a card run with torch's default weight decay fails that
 check (10b).
 
+Phase group 11 runs the int8 paths (``weight_dtype="int8"`` and ``"int8_hybrid"``)
+at full width, 512x512, 25 steps, CFG 7.5, bf16, on weights from phase 5's seeds:
+int8 with dynamic activation scales, 227 sites and 5,675 products an image, K1/K2
+250/1, its PSNR against phase 5's bf16 image (11a); each distinct int8 product
+shape of that image, the card's int32 result against the CPU's bit for bit and
+timed against a bf16 product of the same shape, and each im2col convolution
+against an fp64 convolution of the integer values (11b); a profile of one warm
+int8 image beside phase 7's bf16 groups (11f, ``profile_int8.txt``);
+``calibrate_int8`` and the baked scales, saved and reloaded by a new pipeline that
+must give the same image bit for bit (11c); int8_hybrid after calibration and a
+ControlNet txt2img under int8, 350/1 (11d); and at small widths in fp32 the three
+paths on the card against the CPU, with the card's int8 roundings held to the
+CPU's ties (``RoundingReplay``; 11e).
+
 Exits non-zero on any failure, when no card is visible, or when the port's package
 is not beside this file. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel with its
@@ -57,6 +71,8 @@ Longer logs go to ``chiprun_out/chip_smoke/``.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import gzip
 import json
 import os
@@ -647,13 +663,15 @@ def phase_samplers(pipe, size: int, directory: str):
     return results
 
 
-def phase_profile(generate, s_per_img: float, label: str, filename: str):
+def phase_profile(generate, s_per_img: float, label: str, filename: str,
+                  details: dict = None):
     """One more warm image, ``generate()``, under torch.profiler: device time by
     kernel name and by group (``profiling.op_report``), and the device's busy share
     of the unprofiled wall time ``s_per_img``. Only CUDA activity is recorded: the
     host's events cost most of the profiler's processing time and no number here
     reads them. Returns the busy share, or None where the profiler recorded no
-    device time."""
+    device time; ``details``, if given, gets ``busy_ms``, ``groups`` and
+    ``by_name`` ({key: (ms, launches)})."""
     from torch.profiler import ProfilerActivity, profile
 
     from minsdtf_tpu_torch import profiling
@@ -669,6 +687,8 @@ def phase_profile(generate, s_per_img: float, label: str, filename: str):
         log(f"{label} profile: the profiler recorded no device time (not measured)")
         return None
     groups = profiling.op_report(prof, by="group", top=None)
+    if details is not None:
+        details.update(busy_ms=busy_ms, groups=groups, by_name=by_name)
     with open(os.path.join(OUT_DIR, filename), "w") as f:
         f.write(f"device busy {busy_ms:.3f} ms, profiled wall {wall_ms:.3f} ms\n")
         for name, (t, n) in by_name.items():
@@ -1575,6 +1595,408 @@ def phase_training(card: str):
     return {"full_width": full, "small_card_vs_cpu": small}
 
 
+# ---- phase group 11: int8 W8A8 and int8_hybrid ------------------------------------------
+
+INT8_WARM_IMAGES = 3
+INT8_SITES = 227  # the int8 sites of the full-width fused UNet, as in the JAX package
+INT8_SMALL = dict(widths=(320, 64, 128, 128), temb_dim=128)
+INT8_TIE_GAP = 1e-5  # a replayed tie's input difference, over the activation's amax
+INT8_STATS_RTOL = 1e-4
+INT8_CHECK_ROWS = 256  # 11b: the rows of each product held against the CPU
+INT8_PEAK_OPS = 1979e12  # dense int8 tensor-core peak of the H100 SXM at 700 W
+
+
+class RoundingReplay:
+    """Holds one run's int8 roundings to another's. Where a rounding boundary of
+    an int8 activation falls between two devices' fp32 values (1e-6 apart), the
+    roundings differ by one step, every later int8 site then sees inputs a step
+    apart and flips more of its own, and a 3-step CFG 7.5 int8 latent moves by
+    orders of magnitude more than an fp32 one (the CPU tests measure it).
+    ``recording()`` keeps each activation and
+    its int8 values in call order; ``replaying()`` checks each of the second run's
+    against them: every element that differs must be one step apart with inputs
+    within ``INT8_TIE_GAP`` of the amax (a tie), and the run goes on with the
+    recorded values. ``flips`` counts them."""
+
+    def __init__(self):
+        self.tape = []
+        self.used = 0
+        self.flips = 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from minsdtf_tpu_torch.ops import basic
+
+        original = basic._quantize_acts
+        basic._quantize_acts = lambda x, site, dims, channel_dim: fn(
+            original, x, site, dims, channel_dim)
+        try:
+            yield self
+        finally:
+            basic._quantize_acts = original
+
+    def recording(self):
+        def record(original, x, site, dims, channel_dim):
+            xq, asc = original(x, site, dims, channel_dim)
+            self.tape.append((x.float().cpu(), xq.cpu()))
+            return xq, asc
+
+        return self._patched(record)
+
+    def replaying(self):
+        def replay(original, x, site, dims, channel_dim):
+            xq, asc = original(x, site, dims, channel_dim)
+            want_x, want = self.tape[self.used]
+            self.used += 1
+            got = xq.cpu()
+            differ = got != want
+            if bool(differ.any()):
+                steps = int((got[differ].int() - want[differ].int()).abs().max())
+                gap = float((x.float().cpu()[differ] - want_x[differ]).abs().max())
+                limit = INT8_TIE_GAP * float(want_x.abs().max())
+                if steps != 1 or gap > limit:
+                    raise AssertionError(f"{site.name}: {int(differ.sum())} int8 values differ "
+                                         f"by up to {steps} with inputs {gap:.3e} apart "
+                                         f"(a tie is 1 step within {limit:.3e})")
+                self.flips += int(differ.sum())
+                xq = want.to(xq.device)
+            return xq, asc
+
+        return self._patched(replay)
+
+
+def counting_products(generate):
+    """``generate`` that appends the int8 products each of its calls made to
+    ``.counts`` (``basic.int8_matmul.calls``, counted on the host as they are
+    issued)."""
+    from minsdtf_tpu_torch.ops import basic
+
+    def wrapped(**kw):
+        before = basic.int8_matmul.calls
+        out = generate(**kw)
+        wrapped.counts.append(basic.int8_matmul.calls - before)
+        return out
+
+    wrapped.counts = []
+    return wrapped
+
+
+def psnr(got: np.ndarray, want: np.ndarray) -> float:
+    mse = float(np.mean((got.astype(np.float64) - want.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def products_check(generate, per_image: int, label: str):
+    """A ``run_phase`` check: every call after the cold one made ``per_image``
+    int8 products."""
+    def check(image):
+        log(f"{label}: int8 products per call {generate.counts}")
+        return {f"int8 products per warm image == {per_image}":
+                all(n == per_image for n in generate.counts[1:])}
+    return check
+
+
+def record_int8_shapes(generate) -> tuple:
+    """One call of ``generate()`` with the int8 ops recorded: ({(M, K, N): count}
+    of the products, {conv config: count} of the im2col convolutions, configs
+    being (input shape, weight shape, stride, padding))."""
+    from minsdtf_tpu_torch.ops import basic
+
+    products, convs = {}, {}
+    conv_acc, rescale = basic.int8_conv_acc, basic._rescale
+
+    def conv(xq, weight_q, stride=1, padding=0):
+        acc = conv_acc(xq, weight_q, stride, padding)
+        key = (tuple(xq.shape), tuple(weight_q.shape), stride, basic._pads(padding))
+        convs[key] = convs.get(key, 0) + 1
+        b, ho, wo, o = acc.shape
+        mkn = (b * ho * wo, weight_q[0].numel(), o)
+        products[mkn] = products.get(mkn, 0) + 1
+        return acc
+
+    def rescale_dense(acc, asc, site, dtype):
+        if not site.is_conv:
+            mkn = (acc[..., 0].numel(), site.weight_q.shape[1], acc.shape[-1])
+            products[mkn] = products.get(mkn, 0) + 1
+        return rescale(acc, asc, site, dtype)
+
+    basic.int8_conv_acc, basic._rescale = conv, rescale_dense
+    try:
+        generate()
+        torch.cuda.synchronize()
+    finally:
+        basic.int8_conv_acc, basic._rescale = conv_acc, rescale
+    return products, convs
+
+
+def phase_int8_products(products: dict, convs: dict) -> tuple:
+    """11b: each distinct (M, K, N) of the int8 products on random int8 inputs:
+    the card's int32 result against the CPU's ``torch._int_mm`` on the same
+    inputs (the first and last rows, ``INT8_CHECK_ROWS`` in all), bit for bit, and
+    its device time against a bf16 product of the same shape; each distinct conv
+    config's im2col product against an fp64 ``F.conv2d`` of the integer values on
+    the card (exact: |sums| < 2^53). Returns (passed, numbers)."""
+    from minsdtf_tpu_torch.ops import basic
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ok, rows, int8_ms_image, bf16_ms_image = True, [], 0.0, 0.0
+    for (m, k, n), count in sorted(products.items()):
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda", generator=gen)
+        got = basic.int8_matmul(a, w)
+        half = min(m, INT8_CHECK_ROWS) // 2
+        pick = torch.cat([torch.arange(half), torch.arange(m - (min(m, INT8_CHECK_ROWS) - half), m)])
+        want = basic.int8_matmul(a.cpu()[pick], w.cpu())
+        equal = bool(torch.equal(got.cpu()[pick], want))
+        ab, wb = a.bfloat16(), w.bfloat16()
+        int8_ms = time_ms(lambda: basic.int8_matmul(a, w), 20)
+        bf16_ms = time_ms(lambda: ab @ wb.t(), 20)
+        bound_ms = max(2 * m * k * n / INT8_PEAK_OPS, (m * k + n * k + 4 * m * n) / PEAK_BYTES) * 1e3
+        int8_ms_image += count * int8_ms
+        bf16_ms_image += count * bf16_ms
+        ok &= equal
+        rows.append({"mkn": [m, k, n], "per_image": count, "equal": equal, "int8_ms": int8_ms,
+                     "bf16_ms": bf16_ms, "bound_ms": bound_ms})
+        log(f"phase 11b int8 product (M,K,N)=({m},{k},{n}) x{count} an image: card == CPU on "
+            f"{len(pick)} rows {'ok' if equal else 'FAIL'}; {int8_ms:.4f} ms (bf16 {bf16_ms:.4f} "
+            f"ms, int8 bound {bound_ms:.4f} ms)")
+    for (xshape, wshape, stride, pads), count in sorted(convs.items()):
+        xq = torch.randint(-127, 128, xshape, dtype=torch.int8, device="cuda", generator=gen)
+        wq = torch.randint(-127, 128, wshape, dtype=torch.int8, device="cuda", generator=gen)
+        acc = basic.int8_conv_acc(xq, wq, stride, pads)
+        (top, bottom), (left, right) = pads
+        want = torch.nn.functional.conv2d(
+            torch.nn.functional.pad(xq.double(), (left, right, top, bottom)), wq.double(),
+            stride=stride)
+        equal = bool(torch.equal(acc.permute(0, 3, 1, 2).double(), want))
+        ok &= equal
+        log(f"phase 11b im2col conv x{xshape} w{wshape} stride {stride} pad {pads} x{count} an "
+            f"image == fp64 conv {'ok' if equal else 'FAIL'}")
+    numbers = {"products": rows, "int8_gemm_ms_per_image": int8_ms_image,
+               "bf16_gemm_ms_per_image_same_shapes": bf16_ms_image,
+               "distinct_products": len(products), "distinct_convs": len(convs)}
+    log(f"phase 11b: {len(products)} distinct products, {len(convs)} distinct convs, all equal: "
+        f"{ok}; int8 GEMM device time an image at these shapes {int8_ms_image:.3f} ms (CUDA "
+        f"graphs of 20), bf16 at the same shapes {bf16_ms_image:.3f} ms")
+    return ok, numbers
+
+
+def int8_pipeline(bpe: str, size: int = 512, **kw):
+    from minsdtf_tpu_torch import StableDiffusion
+
+    return StableDiffusion(size, size, bpe_path=bpe, **kw)
+
+
+def phase_int8(bpe: str, bf16_image: np.ndarray, directory: str, phase7: dict):
+    """Phase group 11 at full width, 512x512, 25 steps, CFG 7.5, bf16, random
+    weights from the seeds of phase 5: 11a int8 with dynamic scales, 11b its int8
+    products and convolutions, 11f a profile of one warm image, 11c
+    ``calibrate_int8`` and the baked scales (then saved, and reloaded by a new
+    pipeline that must give the same image), 11d int8_hybrid after calibration and
+    ControlNet txt2img under int8. Returns (results, {phase: launches}), or None
+    if a check failed."""
+    from minsdtf_tpu_torch.models import controlnet as controlnet_lib
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.models.common import cast_weights_
+    from minsdtf_tpu_torch.weights import calibrate, quantize
+
+    expect = {"onepass": 250, "online": 1}
+    results, launches = {}, {}
+    pipe = int8_pipeline(bpe, weight_dtype="int8")
+    generate = counting_products(txt2img(pipe))
+    per_image = INT8_SITES * 25
+    ok, launches["int8"], samples, peak = run_phase(
+        "phase 11a int8 txt2img", generate, 512, INT8_WARM_IMAGES, expect,
+        products_check(generate, per_image, "phase 11a"))
+    sites = quantize.int8_sites(pipe.unet)
+    image = generate()
+    quality = psnr(image, bf16_image)
+    log(f"phase 11a: {len(sites)} int8 sites ({sum(s.is_conv for s in sites.values())} conv), "
+        f"PSNR against phase 5's bf16 image {quality:.3f} dB (not a gate), max |diff| "
+        f"{pixel_diff(image, bf16_image)[0]}")
+    ok &= len(sites) == INT8_SITES
+    results["int8"] = {"s_per_img": statistics.median(samples), "s_per_img_samples": samples,
+                       "peak_gb": peak, "sites": len(sites), "products_per_image": per_image,
+                       "psnr_vs_bf16_db": quality}
+    if not ok:
+        return None
+
+    products, convs = record_int8_shapes(txt2img(pipe))
+    ok, results["products"] = phase_int8_products(products, convs)
+    ok &= sum(products.values()) == per_image
+    if not ok:
+        return None
+
+    details = {}
+    share = phase_profile(txt2img(pipe), statistics.median(samples), "phase 11f int8",
+                          "profile_int8.txt", details=details)
+    if share is not None:
+        gemm_ms, gemm_n = details["groups"].get("int8 gemm", (0.0, 0))
+        extra = (details["groups"].get("elementwise/other", (0.0, 0))[0]
+                 - phase7.get("groups", {}).get("elementwise/other", (0.0, 0))[0])
+        log(f"phase 11f: busy share {share:.4f}; int8 GEMM {gemm_ms:.3f} ms in {gemm_n} launches; "
+            f"elementwise/other {extra:.3f} ms above phase 7's bf16 image (the activation "
+            f"quantize and rescale)")
+        for group in sorted(set(details["groups"]) | set(phase7.get("groups", {}))):
+            t8, n8 = details["groups"].get(group, (0.0, 0))
+            tb, nb = phase7.get("groups", {}).get(group, (0.0, 0))
+            log(f"  group {group}: int8 {t8:.3f} ms, {n8} launches | bf16 (phase 7) {tb:.3f} ms, "
+                f"{nb} launches")
+        results["profile"] = {"busy_share": share, "busy_ms": details["busy_ms"],
+                              "int8_gemm_ms": gemm_ms, "int8_gemm_launches": gemm_n,
+                              "elementwise_ms_above_bf16": extra,
+                              "groups": details["groups"]}
+
+    t0 = time.perf_counter()
+    stats = pipe.calibrate_int8()
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    sites = quantize.int8_sites(pipe.unet)
+    baked = sum(s.act_scale is not None for s in sites.values())
+    log(f"phase 11c calibrate_int8 (seeds 0 and 1, 25 steps): {calib_s:.3f} s, {len(stats)} "
+        f"sites, {baked} baked")
+    generate = counting_products(txt2img(pipe))
+    ok, launches["int8_baked"], samples, peak = run_phase(
+        "phase 11c int8 baked", generate, 512, INT8_WARM_IMAGES, expect,
+        products_check(generate, per_image, "phase 11c"))
+    path = os.path.join(directory, "int8_scales.npz")
+    calibrate.save_scales(path, stats)
+    reloaded = int8_pipeline(bpe, weight_dtype="int8", int8_act_scales=path)
+    same = bool(np.array_equal(txt2img(reloaded)(), txt2img(pipe)()))
+    del reloaded
+    log(f"phase 11c: a new pipeline with int8_act_scales={os.path.basename(path)} gives the same "
+        f"image bit for bit: {same}")
+    ok &= same and len(stats) == INT8_SITES and 0 < baked < INT8_SITES
+    results["int8_baked"] = {"calibrate_s": calib_s, "sites": len(stats), "baked": baked,
+                             "s_per_img": statistics.median(samples), "s_per_img_samples": samples,
+                             "peak_gb": peak, "reloaded_image_equal": same}
+    if not ok:
+        return None
+
+    hybrid = int8_pipeline(bpe, weight_dtype="int8_hybrid")
+    t0 = time.perf_counter()
+    stats = hybrid.calibrate_int8()
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    sites = quantize.int8_sites(hybrid.unet)
+    log(f"phase 11d int8_hybrid calibrate_int8: {calib_s:.3f} s, {len(stats)} conv sites "
+        f"calibrated, {len(sites)} int8 sites")
+    generate = counting_products(txt2img(hybrid))
+    ok, launches["int8_hybrid"], samples, peak = run_phase(
+        "phase 11d int8_hybrid", generate, 512, INT8_WARM_IMAGES, expect,
+        products_check(generate, len(sites) * 25, "phase 11d"))
+    ok &= 0 < len(sites) <= len(stats) and all(s.is_conv for s in sites.values())
+    results["int8_hybrid"] = {"calibrate_s": calib_s, "calibrated": len(stats),
+                              "sites": len(sites), "s_per_img": statistics.median(samples),
+                              "s_per_img_samples": samples, "peak_gb": peak}
+    del hybrid
+    torch.cuda.empty_cache()
+    if not ok:
+        return None
+
+    pipe._controlnet = cast_weights_(quantize.quantize_params(unet_lib.fuse_attention_projections(
+        controlnet_lib.init(pipe.device, seed=3))), pipe.compute_dtype).eval()
+    cn_sites = quantize.int8_sites(pipe._controlnet)
+    hint = sum(n.startswith("controlnet_cond_embedding.") for n in cn_sites)
+    _, _, edges = synthetic_inputs(512)
+    generate = counting_products(lambda **kw: pipe.text_to_image(
+        PROMPT, control_net_image=edges, num_steps=25, unconditional_guidance_scale=7.5,
+        seed=1234, **kw))
+    per_image = 25 * (INT8_SITES + len(cn_sites) - hint) + hint
+    ok, launches["int8_controlnet"], samples, peak = run_phase(
+        "phase 11d int8 ControlNet txt2img", generate, 512, 1, {"onepass": 350, "online": 1},
+        products_check(generate, per_image, "phase 11d ControlNet"))
+    log(f"phase 11d: the ControlNet has {len(cn_sites)} int8 sites, {hint} of them in the hint "
+        f"branch (run once an image)")
+    results["int8_controlnet"] = {"sites": len(cn_sites), "s_per_img": samples[0],
+                                  "peak_gb": peak, "products_per_image": per_image}
+    pipe._controlnet = None
+    return (results, launches) if ok else None
+
+
+def small_int8_pipeline(bpe: str, device: str, models: dict, weight_dtype: str, **kw):
+    """A 64x64 fp32 pipeline on ``device`` with ``models``' text encoder and
+    decoder (made on the CPU) and a small UNet built by the pipeline's own
+    ``unet`` property from seed 0 on the CPU, quantized there as ``weight_dtype``
+    says."""
+    from minsdtf_tpu_torch import pipeline as pipeline_lib
+    from minsdtf_tpu_torch.models import unet as unet_lib
+
+    pipe = pipeline_lib.StableDiffusion(64, 64, bpe_path=bpe, compute_dtype=torch.float32,
+                                        device=device, weight_dtype=weight_dtype, **kw)
+    for name, model in models.items():
+        setattr(pipe, name, copy.deepcopy(model).to(device).eval())
+    build = pipeline_lib.build
+    pipeline_lib.build = lambda factory, dev, seed: (
+        unet_lib.init("cpu", seed=0, **INT8_SMALL).to(dev) if factory is unet_lib.UNet
+        else build(factory, dev, seed))
+    try:
+        pipe.unet
+    finally:
+        pipeline_lib.build = build
+    return pipe
+
+
+def phase_int8_small(bpe: str) -> bool:
+    """11e: the int8, baked and int8_hybrid paths at small widths, fp32 (TF32 off),
+    64x64, 3 steps, on the card against the CPU, the card's int8 roundings held to
+    the CPU's (:class:`RoundingReplay`): ``calibrate_int8`` (seed 0) amax per site
+    within ``INT8_STATS_RTOL``, the latent within 1e-3 and the image within 1. The
+    card's hybrid UNet is built from the CPU's statistics, as the CPU's is: each
+    device's own would differ in the 7th digit, and a weight rounding could tie."""
+    from minsdtf_tpu_torch.models import clip as clip_lib
+    from minsdtf_tpu_torch.models import vae as vae_lib
+    from minsdtf_tpu_torch.weights import quantize
+
+    models = {"_text_model": clip_lib.init("cpu", seed=1),
+              "_decoder": vae_lib.init_decoder("cpu", seed=2, dec_widths=(64, 64, 32, 32))}
+    txt = dict(num_steps=3, seed=7, return_latent=True)
+    all_ok = True
+
+    def compare(label, cpu_run, card_run):
+        replay = RoundingReplay()
+        with replay.recording():
+            want = cpu_run()
+        with replay.replaying():
+            got = card_run()
+        return got, want, replay
+
+    for mode in ("int8", "int8 baked", "int8_hybrid"):
+        weight_dtype = mode.split()[0]
+        cpu = small_int8_pipeline(bpe, "cpu", models, weight_dtype)
+        card = small_int8_pipeline(bpe, "cuda", models, weight_dtype)
+        checks = {}
+        if mode != "int8":
+            got, want, replay = compare(mode, lambda: cpu.calibrate_int8(num_steps=3, seeds=(0,)),
+                                        lambda: card.calibrate_int8(num_steps=3, seeds=(0,)))
+            worst = max(abs(got[k]["amax"] - want[k]["amax"]) / want[k]["amax"] for k in want)
+            checks[f"calibration sites equal, amax within rtol {INT8_STATS_RTOL}"] = (
+                set(got) == set(want) and worst <= INT8_STATS_RTOL)
+            log(f"phase 11e {mode} calibrate_int8: {len(want)} sites, amax max rel diff "
+                f"{worst:.3e}, {replay.flips} ties replayed")
+            if mode == "int8_hybrid":
+                card = small_int8_pipeline(bpe, "cuda", models, weight_dtype,
+                                           int8_act_scales=want)
+        (img_g, lat_g), (img_c, lat_c), replay = compare(
+            mode, lambda: cpu.text_to_image("hello world", **txt),
+            lambda: card.text_to_image("hello world", **txt))
+        lat_err = float(abs(lat_g - lat_c).max())
+        img_err = int(abs(img_g.astype(int) - img_c.astype(int)).max())
+        sites = quantize.int8_sites(card.unet)
+        checks.update({
+            "every int8 call replayed": replay.used == len(replay.tape) > 0,
+            "latent within 1e-3": lat_err <= 1e-3, "image within 1": img_err <= 1,
+            "int8 sites on both devices alike": sorted(sites) == sorted(quantize.int8_sites(
+                cpu.unet)) and len(sites) > 0})
+        ok = all(checks.values())
+        all_ok &= ok
+        log(f"phase 11e {mode} small fp32, card vs CPU: latent max_abs_err {lat_err:.3e} (max "
+            f"|latent| {float(abs(lat_c).max()):.3e}), image max |diff| {img_err}, {len(sites)} "
+            f"int8 sites, {len(replay.tape)} int8 calls, {replay.flips} ties replayed; "
+            f"{checks} {'ok' if ok else 'FAIL'}")
+    return all_ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1626,7 +2048,8 @@ def main() -> int:
             return 1
         mark("phases 6-6c")
         s_per_img = statistics.median(samples)
-        phase_profile(txt2img(pipe), s_per_img, "phase 7", "profile.txt")
+        phase7 = {}
+        phase_profile(txt2img(pipe), s_per_img, "phase 7", "profile.txt", details=phase7)
         for path, label in (("controlnet", "phase 7c ControlNet"), ("img2img", "phase 7d img2img")):
             _, _, warm, _, generate = new_paths[path]
             phase_profile(generate, statistics.median(warm), label, f"profile_{path}.txt")
@@ -1655,6 +2078,17 @@ def main() -> int:
     if training is None:
         return 1
     mark("phases 10a-10b")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-int8-") as tmp:
+        bpe = synthetic_merges(tmp)
+        int8 = phase_int8(bpe, txt2img(pipe)(), tmp, phase7)
+        if int8 is None:
+            return 1
+        int8_results, int8_launches = int8
+        del pipe
+        torch.cuda.empty_cache()
+        if not phase_int8_small(bpe):
+            return 1
+    mark("phases 11a-11f")
     new_paths.update(samplers)
 
     rows = []
@@ -1670,6 +2104,7 @@ def main() -> int:
                      **{f"launches_{path}": serving[path]["launches"][name]
                         for path in ("generate_images", "serve")},
                      "launches_training": training["full_width"]["launches"][name],
+                     **{f"launches_{path}": n[name] for path, n in int8_launches.items()},
                      "max_abs_err": errors[name],
                      **{k: main_shape[k] for k in ("ms", "loop_ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms", "shape")},
@@ -1682,7 +2117,7 @@ def main() -> int:
                       for key, value in (("s_per_img", statistics.median(warm)),
                                          ("s_per_img_samples", warm), ("peak_gb", peak))},
                    "checkpoints": ckpt_numbers, "serving": serving, "training": training,
-                   "kernels": rows}, f, indent=1)
+                   "int8": int8_results, "kernels": rows}, f, indent=1)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -3,17 +3,20 @@
 The models keep their parameters in ``nn.Conv2d`` / ``nn.Linear`` / ``nn.GroupNorm``
 / ``nn.LayerNorm`` / ``nn.Embedding`` so that ``state_dict`` keys are the
 diffusers-style dotted names (``down_blocks.0.resnets.0.conv1.weight``); the
-forwards call :mod:`minsdtf_tpu_torch.ops.basic` on those parameters.
+forwards call :mod:`minsdtf_tpu_torch.ops.basic` on those parameters. A conv or
+dense site that :mod:`minsdtf_tpu_torch.weights.quantize` made W8A8 is an
+:class:`Int8Site` in its place, and :func:`apply_conv` / :func:`apply_dense` run it
+through the int8 ops.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from minsdtf_tpu_torch.ops.basic import conv2d, dense
+from minsdtf_tpu_torch.ops.basic import conv2d, dense, int8_conv2d, int8_dense
 
 _WEIGHT_MODULES = (nn.Conv2d, nn.Linear, nn.Embedding)
 _NORM_MODULES = (nn.GroupNorm, nn.LayerNorm)
@@ -44,7 +47,7 @@ def build(factory: Callable[[], nn.Module], device, seed: int, scale: float = 0.
 
 def cast_weights_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Conv / dense kernels and embeddings to ``dtype`` (the compute dtype);
-    biases and norm parameters stay fp32."""
+    biases, norm parameters and :class:`Int8Site` buffers stay as they are."""
     for m in module.modules():
         if isinstance(m, _WEIGHT_MODULES):
             m.weight.data = m.weight.data.to(dtype)
@@ -62,11 +65,42 @@ def norm(c: int) -> nn.GroupNorm:
     return nn.GroupNorm(32, c)
 
 
-def apply_conv(m: nn.Conv2d, x: torch.Tensor, **kw) -> torch.Tensor:
-    """:func:`ops.basic.conv2d` with ``m``'s weight and bias."""
+class Int8Site(nn.Module):
+    """A W8A8 conv or dense site, in the place of the ``nn.Conv2d`` / ``nn.Linear``
+    it was made from: ``weight_q`` int8 (OIHW or ``(out, in)``), ``weight_scale``
+    fp32 per output channel, optionally a calibrated fp32 ``act_scale`` (a scalar)
+    and, at equalized sites, ``act_qmul`` (fp32 per input channel), and the fp32
+    ``bias``. ``name`` is the site's dotted name in its model, under which
+    calibration records it. The JAX package's module dict holds the same as
+    ``kernel_q``, ``kernel_scale``, ``act_scale``, ``act_qmul`` and ``bias``."""
+
+    def __init__(self, name: str, weight_q: torch.Tensor, weight_scale: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, act_scale: Optional[torch.Tensor] = None,
+                 act_qmul: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.name = name
+        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("weight_scale", weight_scale)
+        self.register_buffer("bias", bias)
+        self.register_buffer("act_scale", act_scale)
+        self.register_buffer("act_qmul", act_qmul)
+
+    @property
+    def is_conv(self) -> bool:
+        return self.weight_q.dim() == 4
+
+
+def apply_conv(m: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
+    """:func:`ops.basic.conv2d` with ``m``'s weight and bias, or
+    :func:`ops.basic.int8_conv2d` where ``m`` is an :class:`Int8Site`."""
+    if isinstance(m, Int8Site):
+        return int8_conv2d(x, m, **kw)
     return conv2d(x, m.weight, m.bias, **kw)
 
 
-def apply_dense(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """:func:`ops.basic.dense` with ``m``'s weight and bias."""
+def apply_dense(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """:func:`ops.basic.dense` with ``m``'s weight and bias, or
+    :func:`ops.basic.int8_dense` where ``m`` is an :class:`Int8Site`."""
+    if isinstance(m, Int8Site):
+        return int8_dense(x, m)
     return dense(x, m.weight, m.bias)

@@ -25,7 +25,7 @@ from torch import nn
 from minsdtf_tpu_torch.models.common import apply_conv, apply_dense, build, norm, param_shapes
 from minsdtf_tpu_torch.ops.attention import multi_head_attention
 from minsdtf_tpu_torch.ops.basic import (
-    dense, geglu, group_norm, group_norm_silu, layer_norm, silu, upsample2x_conv3x3,
+    gelu_gate, group_norm, group_norm_silu, layer_norm, silu, upsample2x_conv3x3,
 )
 
 NUM_HEADS = 8
@@ -81,14 +81,14 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, context):
         if hasattr(self, "to_qkv"):
-            q, k, v = dense(x, self.to_qkv.weight).chunk(3, dim=-1)
+            q, k, v = apply_dense(self.to_qkv, x).chunk(3, dim=-1)
         elif hasattr(self, "to_kv"):
-            q = dense(x, self.to_q.weight)
-            k, v = dense(context, self.to_kv.weight).chunk(2, dim=-1)
+            q = apply_dense(self.to_q, x)
+            k, v = apply_dense(self.to_kv, context).chunk(2, dim=-1)
         else:
-            q = dense(x, self.to_q.weight)
-            k = dense(context, self.to_k.weight)
-            v = dense(context, self.to_v.weight)
+            q = apply_dense(self.to_q, x)
+            k = apply_dense(self.to_k, context)
+            v = apply_dense(self.to_v, context)
         return apply_dense(self.to_out[0], multi_head_attention(q, k, v, num_heads=NUM_HEADS))
 
 
@@ -115,8 +115,8 @@ class TransformerBlock(nn.Module):
         h = layer_norm(x, self.norm1.weight, self.norm1.bias)
         x = self.attn1(h, h) + x
         x = self.attn2(layer_norm(x, self.norm2.weight, self.norm2.bias), context) + x
-        proj = self.ff.net["0"].proj
-        h = geglu(layer_norm(x, self.norm3.weight, self.norm3.bias), proj.weight, proj.bias)
+        h = layer_norm(x, self.norm3.weight, self.norm3.bias)
+        h = gelu_gate(apply_dense(self.ff.net["0"].proj, h))
         return apply_dense(self.ff.net["2"], h) + x
 
 

@@ -4,6 +4,15 @@ Layouts are PyTorch's: images are NCHW, conv weights OIHW, dense weights
 ``(out, in)``. Matmuls and convs run in the dtype of the activations (bf16 in
 production, fp32 in parity tests) with fp32 accumulation; the weight and bias are
 cast to that dtype. Normalization statistics are always fp32.
+
+:func:`int8_conv2d` and :func:`int8_dense` run a W8A8 site
+(:class:`minsdtf_tpu_torch.models.common.Int8Site`, made by
+:mod:`minsdtf_tpu_torch.weights.quantize`) as the JAX package's ``conv2d`` and
+``dense`` run a ``kernel_q`` module: the activation quantized to int8 per image
+(conv) or per token (dense), dynamically or with a calibrated ``act_scale``, an
+int8 x int8 -> int32 product (:func:`int8_matmul`, ``torch._int_mm``; the conv as
+im2col), then ``acc * (act_scale * weight_scale)`` in fp32, the downcast, and the
+bias in the activations' dtype.
 """
 
 from __future__ import annotations
@@ -18,6 +27,12 @@ Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
 
 def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
     return None if t is None else t.to(dtype)
+
+
+def _pads(padding: Padding) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    return tuple((int(a), int(b)) for a, b in padding)
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -74,7 +89,12 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 def geglu(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     """GEGLU feed-forward gate: project to 2*dim_out, ``value * gelu_tanh(gate)``."""
-    value, gate = dense(x, weight, bias).chunk(2, dim=-1)
+    return gelu_gate(dense(x, weight, bias))
+
+
+def gelu_gate(h: torch.Tensor) -> torch.Tensor:
+    """GEGLU's gate on the projection ``h`` to 2*dim_out: ``value * gelu_tanh(gate)``."""
+    value, gate = h.chunk(2, dim=-1)
     return value * gelu_tanh(gate)
 
 
@@ -82,3 +102,116 @@ def upsample2x_conv3x3(x: torch.Tensor, weight: torch.Tensor,
                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``conv2d(nearest_2x(x), padding=1)``: the UNet and VAE upsamplers."""
     return conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), weight, bias, padding=1)
+
+
+# ---- W8A8 int8 sites ------------------------------------------------------------
+
+# Calibration tape (weights/calibrate.py): while it is a list, every int8 site
+# appends a dict of its name and its input's statistics (``amax``, and per input
+# channel ``ch_amax``, ``ch_mean``, ``ch_msq``), then ``out_msq`` of its rescaled
+# output before the bias, as fp32 tensors on the site's device, in call order.
+_CALIB_TAPE: Optional[list] = None
+# torch._int_mm on CUDA takes more than 16 rows; fewer are padded with zero rows
+INT8_MIN_ROWS = 17
+
+
+def set_calibration_tape(tape: Optional[list]) -> None:
+    global _CALIB_TAPE
+    _CALIB_TAPE = tape
+
+
+def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a`` (M, K) int8 times ``w`` (N, K) int8 transposed -> (M, N) int32, exact,
+    by ``torch._int_mm`` (its second operand is ``w.t()``, column-major). Fewer
+    than ``INT8_MIN_ROWS`` rows are padded with zero rows, which add nothing, and
+    sliced off. Counts its products in ``.calls``."""
+    m = a.shape[0]
+    if m < INT8_MIN_ROWS:
+        a = F.pad(a, (0, 0, 0, INT8_MIN_ROWS - m))
+    out = torch._int_mm(a, w.t())
+    int8_matmul.calls += 1
+    return out[:m]
+
+
+int8_matmul.calls = 0
+
+
+def _quantize_acts(x: torch.Tensor, site, dims, channel_dim: int):
+    """Symmetric int8 activations of ``x`` for ``site``, in the JAX package's
+    order of operations (its ``_quantize_acts``), and the fp32 activation scale.
+
+    - ``act_qmul`` (per input channel, equalized sites): ``round(x * act_qmul)``
+      clipped to +-127, with the scalar ``act_scale``;
+    - ``act_scale`` (calibrated): ``round(x * (1 / act_scale))`` clipped;
+    - neither (dynamic): ``asc = max(amax, 1e-12) * (1/127)`` with the amax over
+      ``dims``, then ``round(x / asc)``, no clip.
+
+    ``channel_dim`` is the input-channel axis: 1 for NCHW, -1 for dense."""
+    xf = x.float()
+    if _CALIB_TAPE is not None:
+        ch_dims = tuple(d for d in range(xf.dim()) if d != channel_dim % xf.dim())
+        absx = xf.abs()
+        _CALIB_TAPE.append({"name": site.name, "amax": absx.amax(),
+                            "ch_amax": absx.amax(dim=ch_dims),
+                            "ch_mean": xf.mean(dim=ch_dims),
+                            "ch_msq": xf.square().mean(dim=ch_dims)})
+    if site.act_qmul is not None:
+        qmul = site.act_qmul.float()
+        if channel_dim == 1:
+            qmul = qmul.view(-1, *([1] * (xf.dim() - 2)))
+        xq = torch.round(xf * qmul).clamp(-127, 127)
+        return xq.to(torch.int8), site.act_scale.float()
+    if site.act_scale is not None:
+        asc = site.act_scale.float()
+        return torch.round(xf * (1.0 / asc)).clamp(-127, 127).to(torch.int8), asc
+    amax = xf.abs().amax(dim=dims, keepdim=True)
+    asc = amax.clamp(min=1e-12) * (1.0 / 127.0)
+    return torch.round(xf / asc).to(torch.int8), asc
+
+
+def _rescale(acc: torch.Tensor, asc: torch.Tensor, site, dtype) -> torch.Tensor:
+    """``(acc * (asc * weight_scale)).to(dtype)`` with the output channel last,
+    recording ``out_msq`` on the tape."""
+    out = (acc.float() * (asc * site.weight_scale)).to(dtype)
+    if _CALIB_TAPE is not None:
+        _CALIB_TAPE[-1]["out_msq"] = out.float().square().mean()
+    return out
+
+
+def int8_conv_acc(xq: torch.Tensor, weight_q: torch.Tensor, stride: int = 1,
+                  padding: Padding = 0) -> torch.Tensor:
+    """The int32 convolution of the int8 NCHW ``xq`` with the int8 OIHW
+    ``weight_q``, as (B, Ho, Wo, O): ``xq`` zero-padded and unfolded into
+    (B*Ho*Wo, C*kh*kw) columns in the weight's (I, kh, kw) order, then one
+    :func:`int8_matmul`."""
+    (top, bottom), (left, right) = _pads(padding)
+    if top or bottom or left or right:
+        xq = F.pad(xq, (left, right, top, bottom))
+    o, c, kh, kw = weight_q.shape
+    patches = xq.unfold(2, kh, stride).unfold(3, kw, stride)  # (B, C, Ho, Wo, kh, kw)
+    b, _, ho, wo = patches.shape[:4]
+    cols = patches.permute(0, 2, 3, 1, 4, 5).reshape(b * ho * wo, c * kh * kw)
+    return int8_matmul(cols, weight_q.reshape(o, c * kh * kw)).view(b, ho, wo, o)
+
+
+def int8_conv2d(x: torch.Tensor, site, stride: int = 1, padding: Padding = 0) -> torch.Tensor:
+    """W8A8 convolution, NCHW x ``site.weight_q`` (OIHW int8): per-image activation
+    scales over (C, H, W), the int32 product (:func:`int8_conv_acc`), the rescale
+    in NHWC and the bias. The output is NCHW in channels-last memory."""
+    xq, asc = _quantize_acts(x, site, dims=(1, 2, 3), channel_dim=1)
+    acc = int8_conv_acc(xq, site.weight_q, stride, padding)
+    out = _rescale(acc, asc, site, x.dtype).permute(0, 3, 1, 2)
+    if site.bias is not None:
+        out = out + site.bias.to(x.dtype).view(-1, 1, 1)
+    return out
+
+
+def int8_dense(x: torch.Tensor, site) -> torch.Tensor:
+    """W8A8 affine map over the last axis, ``site.weight_q`` (out, in) int8:
+    per-token activation scales, one :func:`int8_matmul`, the rescale, the bias."""
+    xq, asc = _quantize_acts(x, site, dims=-1, channel_dim=-1)
+    acc = int8_matmul(xq.reshape(-1, x.shape[-1]), site.weight_q)
+    out = _rescale(acc.view(*x.shape[:-1], -1), asc, site, x.dtype)
+    if site.bias is not None:
+        out = out + site.bias.to(x.dtype)
+    return out

@@ -35,6 +35,15 @@ never a result: a ``lora_path`` that does not exist raises ``FileNotFoundError``
 and a LoRA whose deltas reach a module without a checkpoint raises
 ``ValueError``. ``compute_dtype`` is bf16 on CUDA unless fp32 is asked for.
 
+``weight_dtype="int8"`` makes every eligible UNet and ControlNet conv and dense
+site W8A8 (:mod:`weights.quantize`), with dynamic activation scales or, from
+``int8_act_scales`` (a dict or an ``.npz`` path) or :meth:`calibrate_int8`,
+calibrated static ones (:mod:`weights.calibrate`); ``"int8_hybrid"`` makes only
+the calibration-stable conv sites int8, equalized and bias-corrected, and needs
+the scales. The weights are quantized from fp32, after the LoRA merge and the
+projections' fusion and before the cast; the text encoder and the VAE stay in
+the compute dtype.
+
 The reference-compatible handles (``diffusion_model``, ``text_clip_embedding``,
 ``text_encoder``, ``image_encoder``, ``image_decoder``, ``hint_net``,
 ``control_net``) take and return numpy arrays in the JAX package's layouts (NHWC
@@ -44,6 +53,7 @@ call, and run on the pipeline's device.
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Callable, List, Optional, Sequence, Union
 
@@ -62,7 +72,7 @@ from minsdtf_tpu_torch.models import vae as vae_lib
 from minsdtf_tpu_torch.models.common import build, cast_weights_
 from minsdtf_tpu_torch.text import prompt_weighting as lpw
 from minsdtf_tpu_torch.text.tokenizer import ClipTokenizer
-from minsdtf_tpu_torch.weights import convert, textual_inversion
+from minsdtf_tpu_torch.weights import calibrate, convert, quantize, textual_inversion
 from minsdtf_tpu_torch.weights import fetch as fetch_lib
 from minsdtf_tpu_torch.weights import lora as lora_lib
 
@@ -70,6 +80,14 @@ MAX_PROMPT_LENGTH = 77
 PAD_TOKEN_ID = 49407
 PROMPT_CACHE_SIZE = 8
 SCHEDULE_CACHE_SIZE = 16
+WEIGHT_DTYPES = (None, "int8", "int8_hybrid")
+
+
+def _env_float(name: str, default: str) -> Optional[float]:
+    """The environment variable ``name`` (else ``default``) as a float; "none"
+    gives None."""
+    value = os.environ.get(name, default)
+    return None if value.lower() == "none" else float(value)
 
 
 def draw_step_noise(seed: int, shape: Sequence[int]) -> torch.Tensor:
@@ -135,6 +153,8 @@ class StableDiffusion:
         device=None,
         scheduler_type: Optional[str] = None,
         prediction_type: str = "epsilon",
+        weight_dtype: Optional[str] = None,
+        int8_act_scales=None,
     ):
         self.img_height = int(img_height)
         self.img_width = int(img_width)
@@ -148,6 +168,23 @@ class StableDiffusion:
             raise ValueError(
                 f"prediction_type must be 'epsilon' or 'v', got {prediction_type!r}")
         self.prediction_type = prediction_type
+        if weight_dtype not in WEIGHT_DTYPES:
+            raise ValueError(
+                f"weight_dtype must be None, 'int8' or 'int8_hybrid', got {weight_dtype!r}")
+        self.weight_dtype = weight_dtype
+        if isinstance(int8_act_scales, (str, os.PathLike)):
+            int8_act_scales = calibrate.load_scales(str(int8_act_scales))
+        self._int8_act_scales = int8_act_scales
+        # the int8_hybrid settings, read once here under the JAX package's names
+        # and defaults, so that a later calibrate_int8 builds what the
+        # constructor would
+        self._hybrid_dense = os.environ.get("MINSDTF_HYBRID_DENSE", "0") == "1"
+        self._hybrid_cfg = {
+            "equalize_alpha": _env_float("MINSDTF_HYBRID_ALPHA", "0.5"),
+            "clip_sigmas": _env_float("MINSDTF_HYBRID_CLIP", "none"),
+            "bias_correct": os.environ.get("MINSDTF_HYBRID_BIASCORR", "1") == "1",
+            "max_site_rel_mse": _env_float("MINSDTF_HYBRID_MAX_ERR", "none"),
+        }
         self.device = resolve_device(device)
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
@@ -210,12 +247,15 @@ class StableDiffusion:
         return convert.convert_cached(kind, _existing(path, kind), lora=lora)
 
     def _load_or_init(self, path, kind: str, factory: Callable[[], nn.Module], seed: int,
-                      lora=None, part: Optional[int] = None, fuse: bool = False) -> nn.Module:
+                      lora=None, part: Optional[int] = None, fuse: bool = False,
+                      quantize_fn: Optional[Callable[[nn.Module], nn.Module]] = None
+                      ) -> nn.Module:
         """``factory()`` on the device, in eval mode, holding the weights of the
         checkpoint at ``path`` (``part`` of the VAE's pair, ``lora`` merged), or
         without a path random ones from ``seed`` (:func:`models.common.build`):
-        fp32 first, then the attention projections fused when ``fuse``, then cast
-        to the compute dtype."""
+        fp32 first, then the attention projections fused when ``fuse``, then
+        ``quantize_fn`` (int8 sites from the fp32 weights), then cast to the
+        compute dtype."""
         if path is None:
             model = build(factory, self.device, seed)
         else:
@@ -226,13 +266,32 @@ class StableDiffusion:
             model = model.to(self.device)
         if fuse:
             model = unet_lib.fuse_attention_projections(model)
+        if quantize_fn is not None:
+            model = quantize_fn(model)
         return cast_weights_(model, self.compute_dtype).eval()
+
+    def _quantize_unet(self, model: nn.Module) -> nn.Module:
+        """The fp32 UNet made int8 as ``weight_dtype`` says: every eligible site
+        ("int8", with the constructor's scales baked), or the stable conv sites
+        ("int8_hybrid" with scales; the dense sites too, dynamic, with
+        ``MINSDTF_HYBRID_DENSE=1``; without either the UNet stays float until
+        :meth:`calibrate_int8`)."""
+        if self.weight_dtype == "int8":
+            model = quantize.quantize_params(model)
+            if self._int8_act_scales:
+                model = calibrate.bake_act_scales(model, self._int8_act_scales)
+        elif self.weight_dtype == "int8_hybrid" and (self._int8_act_scales or self._hybrid_dense):
+            model = quantize.hybridize_params(model, self._int8_act_scales or {},
+                                              dense_dynamic=self._hybrid_dense,
+                                              **self._hybrid_cfg)
+        return model
 
     @property
     def unet(self) -> unet_lib.UNet:
         if self._unet is None:
             self._unet = self._load_or_init(self.unet_ckpt, "unet", unet_lib.UNet, 0,
-                                            lora=self.unet_lora, fuse=True)
+                                            lora=self.unet_lora, fuse=True,
+                                            quantize_fn=self._quantize_unet)
         return self._unet
 
     @property
@@ -257,11 +316,13 @@ class StableDiffusion:
 
     @property
     def controlnet(self) -> Optional[controlnet_lib.ControlNet]:
-        """The ControlNet of ``controlnet_path`` (fused and cast as the UNet is), or
-        the one assigned to ``_controlnet``, or None."""
+        """The ControlNet of ``controlnet_path`` (fused and cast as the UNet is, and
+        under ``weight_dtype="int8"`` made int8 at every eligible site), or the one
+        assigned to ``_controlnet``, or None."""
         if self._controlnet is None and self.controlnet_path is not None:
-            self._controlnet = self._load_or_init(self.controlnet_path, "controlnet",
-                                                  controlnet_lib.ControlNet, 3, fuse=True)
+            self._controlnet = self._load_or_init(
+                self.controlnet_path, "controlnet", controlnet_lib.ControlNet, 3, fuse=True,
+                quantize_fn=quantize.quantize_params if self.weight_dtype == "int8" else None)
         return self._controlnet
 
     @property
@@ -579,6 +640,65 @@ class StableDiffusion:
         if not _defer_fetch:
             out = [fetch(t) for t in out]
         return out[0] if len(out) == 1 else tuple(out)
+
+    def calibrate_int8(
+        self,
+        encoded_text=None,
+        num_steps: int = 25,
+        seeds=(0, 1),
+        unconditional_guidance_scale: float = 7.5,
+        guidance_rescale: float = 0.7,
+        margin: float = 1.05,
+        include_dense: bool = False,
+        save_path: Optional[str] = None,
+    ) -> dict:
+        """Calibrate static int8 activation scales on real denoising trajectories
+        (CFG, the rescale and DDIM from each seed's noise, with ``encoded_text``
+        or the unconditional context as the prompt) and bake them into the live
+        UNet (:mod:`weights.calibrate`). Returns the ``{site: statistics}`` dict;
+        pass it, or ``save_path``, to ``StableDiffusion(int8_act_scales=...)`` to
+        skip calibrating in a later process. A later :meth:`set_lora` rebuilds the
+        UNet with the constructor's scales only.
+
+        Under ``weight_dtype="int8_hybrid"`` the trajectories run on a temporary
+        copy of the UNet with every eligible conv site int8 and dynamic; then the
+        live UNet becomes the hybrid form (:func:`weights.quantize.hybridize_params`)."""
+        if self.weight_dtype not in ("int8", "int8_hybrid"):
+            raise ValueError("calibrate_int8 requires weight_dtype='int8' or 'int8_hybrid'")
+        h8, w8 = self.img_height // 8, self.img_width // 8
+        uncond = self._unconditional_context()
+        context = uncond if encoded_text is None else to_device(encoded_text, self.device,
+                                                                 torch.float32)
+        if context.dim() == 2:
+            context = context[None]
+        schedule = sched_lib.build_denoise_schedule(self.scheduler, num_steps, eta=0.3)
+        t_embs = sched_lib.timestep_embedding(schedule.timesteps)
+        rows = {k: np.asarray(getattr(schedule, k), np.float32)
+                for k in ("sr_t", "nr_t", "sr_prev", "nr_prev", "is_last")}
+        calib_unet = self.unet
+        if self.weight_dtype == "int8_hybrid":
+            # the tape records int8 sites only, so the copy carries one at every
+            # candidate conv site
+            calib_unet = quantize.quantize_params(copy.deepcopy(self.unet), conv_only=True)
+        amax: dict = {}
+        for seed in seeds:
+            latent0 = rng_lib.stateless_normal((1, h8, w8, 4), seed).astype(np.float32)
+            got = calibrate.collect_unet_amax(
+                calib_unet, to_device(latent0, self.device).to(self.compute_dtype), context,
+                uncond, t_embs, rows, guidance_scale=unconditional_guidance_scale,
+                guidance_rescale=guidance_rescale)
+            calibrate.merge_stats(amax, got)
+        del calib_unet
+        if self.weight_dtype == "int8_hybrid":
+            self._unet = quantize.hybridize_params(
+                self.unet, amax, margin=margin, dense_dynamic=self._hybrid_dense,
+                **self._hybrid_cfg)
+        else:
+            self._unet = calibrate.bake_act_scales(self.unet, amax, margin=margin,
+                                                   include_dense=include_dense)
+        if save_path:
+            calibrate.save_scales(save_path, amax)
+        return amax
 
     def generate_images(self, encoded_texts, seeds=None, **kwargs):
         """Queued dispatch: every request of ``encoded_texts`` (contexts as

@@ -30,6 +30,9 @@ PEAK_BF16 = {"H100 80GB HBM3": 989e12}
 KERNEL_GROUPS = (
     ("attention K1/K2", ("flash_onepass", "flash_online", "flash_bf16")),
     ("convolution", ("conv", "fprop", "implicit", "dgrad", "winograd")),
+    # torch._int_mm's int8 x int8 -> int32 products (the int8 path's convs and
+    # dense sites), e.g. cutlass_80_tensorop_i16832gemm_s8_128x64_128x3_tn_align16
+    ("int8 gemm", ("gemm_s8", "s8s8", "imma")),
     ("gemm", ("gemm", "nvjet", "cutlass", "matmul")),
     ("norm", ("norm",)),
     ("memcpy/memset", ("memcpy", "memset")),

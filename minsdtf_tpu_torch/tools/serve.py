@@ -377,9 +377,11 @@ def main(argv=None):
                     help="merge up to N concurrently queued compatible requests "
                          "into one batched call (1 disables)")
     ap.add_argument("--bpe", default=None, help="CLIP merges file (for `prompt` requests)")
-    ap.add_argument("--int8", action="store_true", help="serve with W8A8 weights (not ported)")
+    ap.add_argument("--int8", action="store_true", help="serve with W8A8 weights")
     ap.add_argument("--int8-hybrid", default=None, metavar="SCALES_NPZ",
-                    help="serve with stable-site-only int8 (not ported)")
+                    help="serve with stable-site-only int8 (weights/quantize."
+                         "hybridize_params); pass the calibrated act-scale .npz "
+                         "from StableDiffusion.calibrate_int8(save_path=...)")
     ap.add_argument("--scheduler", default=None,
                     choices=["ddim", "euler", "euler_a", "tcd", "lcm", "dpm", "dpm_karras"],
                     help="sampler (dpm = DPM-Solver++(2M), ~15 steps for "
@@ -389,9 +391,6 @@ def main(argv=None):
     ap.add_argument("--vae", default=None)
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.int8 or args.int8_hybrid:
-        ap.error("int8 weights (--int8, --int8-hybrid) are not ported to "
-                 "minsdtf_tpu_torch yet")
 
     from minsdtf_tpu_torch import kernels
     from minsdtf_tpu_torch.pipeline import StableDiffusion
@@ -399,6 +398,8 @@ def main(argv=None):
     pipe = StableDiffusion(
         img_height=args.size, img_width=args.size, bpe_path=args.bpe,
         unet_ckpt=args.unet, text_encoder_ckpt=args.text_encoder, vae_ckpt=args.vae,
+        weight_dtype="int8_hybrid" if args.int8_hybrid else ("int8" if args.int8 else None),
+        int8_act_scales=args.int8_hybrid,
         scheduler_type=args.scheduler, device=args.device,
     )
     if pipe.device.type == "cuda":

@@ -2,8 +2,10 @@
 VAE encoder and ControlNet that run them on the img2img and ControlNet paths,
 against the same modules on the CPU; the step loop at batch 2 in bf16 on the
 card against fp32 on the CPU; a merged batch of 2 against batch 1 in bf16; the
-kernels' refusal of a gradient they cannot give, and small-width training steps
-on the card against the CPU.
+kernels' refusal of a gradient they cannot give, small-width training steps
+on the card against the CPU, and the int8 path's products (``torch._int_mm``) and
+im2col convolution on the card against the CPU, with an int8 UNet that launches
+K1.
 
 Every test here needs an NVIDIA card and ``nvcc`` (Hopper, ``sm_90a``) and skips
 where torch sees no CUDA device. The JAX package is not imported, so the file also
@@ -19,7 +21,9 @@ import pytest
 import torch
 
 import chip_smoke
+from minsdtf_tpu_torch.models.common import Int8Site
 from minsdtf_tpu_torch.ops import attention as tattn
+from minsdtf_tpu_torch.ops import basic as tbasic
 from minsdtf_tpu_torch.ops import flash_attention as tfa
 from minsdtf_tpu_torch.tools import selfcheck
 
@@ -429,3 +433,73 @@ def test_small_train_steps_on_the_card_match_the_cpu(cuda):
     takes the plain attention path, so no kernel launches."""
     ok, numbers = chip_smoke.compare_small_training()
     assert ok, numbers
+
+
+# (M, K, N) of int8 products: a batch-1 time_emb_proj (2 rows, padded to 17), the
+# 64x64 level's 3x3 convs as im2col at CFG batch 2, a fused to_qkv and a to_kv
+INT8_MATMUL_SHAPES = [(2, 1280, 320), (8192, 2880, 320), (8192, 320, 960), (154, 768, 1280)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_MATMUL_SHAPES)
+def test_int8_matmul_on_the_card_equals_the_cpu(cuda, m, k, n):
+    gen = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=gen)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=gen)
+    got = tbasic.int8_matmul(a.to(cuda), w.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), tbasic.int8_matmul(a, w))
+
+
+def _int8_site(o, c, k, device, seed=0, act_scale=None):
+    gen = torch.Generator().manual_seed(seed)
+    site = Int8Site("s", torch.randint(-127, 128, (o, c, k, k), dtype=torch.int8, generator=gen),
+                    torch.rand(o, generator=gen) * 1e-3, torch.randn(o, generator=gen) * 0.05,
+                    act_scale=None if act_scale is None else torch.tensor(act_scale))
+    return site.to(device)
+
+
+@pytest.mark.parametrize("b,c,hw,o,k,stride,act_scale", [
+    (2, 320, 64, 320, 3, 1, None), (1, 640, 64, 320, 3, 1, 0.03), (2, 320, 64, 320, 3, 2, None),
+    (2, 640, 32, 1280, 1, 1, None)])
+def test_int8_conv_on_the_card_equals_the_cpu(cuda, b, c, hw, o, k, stride, act_scale):
+    """The fp32 int8 convolution is bit-equal across devices (every step is exact
+    or one correctly rounded operation), and its im2col product equals an fp64
+    convolution of the integer values (|sums| < 2^53: exact)."""
+    x = torch.randn(b, c, hw, hw, generator=torch.Generator().manual_seed(1)) * 2.0
+    pad = k // 2
+    cpu_site = _int8_site(o, c, k, "cpu", act_scale=act_scale)
+    card_site = _int8_site(o, c, k, cuda, act_scale=act_scale)
+    got = tbasic.int8_conv2d(x.to(cuda), card_site, stride=stride, padding=pad)
+    assert torch.equal(got.cpu(), tbasic.int8_conv2d(x, cpu_site, stride=stride, padding=pad))
+    xq = torch.randint(-127, 128, (b, c, hw, hw), dtype=torch.int8,
+                       generator=torch.Generator().manual_seed(2)).to(cuda)
+    acc = tbasic.int8_conv_acc(xq, card_site.weight_q, stride, pad)
+    want = torch.nn.functional.conv2d(xq.double(), card_site.weight_q.double(), stride=stride,
+                                      padding=pad)
+    assert torch.equal(acc.permute(0, 3, 1, 2).double(), want)
+
+
+def test_int8_unet_runs_on_the_card_and_launches_k1(cuda):
+    """A small int8 UNet in bf16 at 1024 tokens: its self-attentions on K1, every
+    int8 site a product, a finite output."""
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.models.common import cast_weights_
+    from minsdtf_tpu_torch.weights import quantize
+
+    unet = unet_lib.fuse_attention_projections(
+        unet_lib.init("cpu", seed=0, widths=(320, 64, 128, 128), temb_dim=128))
+    unet = cast_weights_(quantize.quantize_params(unet), torch.bfloat16).to(cuda).eval()
+    sites = quantize.int8_sites(unet)
+    gen = torch.Generator().manual_seed(3)
+    latent = torch.randn(2, 32, 32, 4, generator=gen).to(cuda, torch.bfloat16)
+    t_emb = torch.randn(2, 320, generator=gen).to(cuda, torch.bfloat16)
+    ctx = torch.randn(2, 77, 768, generator=gen).to(cuda, torch.bfloat16)
+    k1, calls = tfa.onepass_attention.launches, tbasic.int8_matmul.calls
+    with torch.inference_mode():
+        out = unet(latent, t_emb, ctx)
+    torch.cuda.synchronize()
+    # the five self-attentions at 1024 tokens (down_blocks.0 and up_blocks.3)
+    assert tfa.onepass_attention.launches - k1 == 5
+    assert tbasic.int8_matmul.calls - calls == len(sites) > 0
+    assert out.shape == (2, 32, 32, 4) and bool(torch.isfinite(out).all())
+

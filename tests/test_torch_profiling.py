@@ -32,6 +32,8 @@ def test_chip_peak_flops_by_card_name():
     ("flash_online_d512_merge_kernel", "attention K1/K2"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32", "convolution"),
     ("nvjet_tst_128x64_64x4_1x2_h_bz_coopA_TNN", "gemm"),
+    ("void cutlass::Kernel2<cutlass_80_tensorop_i16832gemm_s8_128x64_128x3_tn_align16>"
+     "(cutlass_80_tensorop_i16832gemm_s8_128x64_128x3_tn_align16::Params)", "int8 gemm"),
     ("void at::native::RowwiseMomentsCUDAKernel<float>", "elementwise/other"),
     ("void at::native::vectorized_layer_norm_kernel<float, float>", "norm"),
     ("Memcpy HtoD (Pinned -> Device)", "memcpy/memset"),

@@ -297,3 +297,34 @@ def test_port_worker_matches_the_jax_worker(tmp_path):
     for got, want in zip(images["port"], images["jax"]):
         assert got.shape == want.shape == (1, 64, 64, 3) and got.dtype == np.uint8
         assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("flags,weight_dtype", [
+    ([], None), (["--int8"], "int8"), (["--int8-hybrid", "SCALES"], "int8_hybrid")])
+def test_int8_flags_reach_the_pipeline(flags, weight_dtype, tmp_path, monkeypatch):
+    """``--int8`` and ``--int8-hybrid SCALES_NPZ`` build the pipeline as the JAX
+    server does: ``weight_dtype`` "int8" or "int8_hybrid", the latter with the
+    calibrated scales read from the file."""
+    from minsdtf_tpu_torch.weights import calibrate
+
+    path = str(tmp_path / "scales.npz")
+    calibrate.save_scales(path, {"mid_block.resnets.0.conv1": {"amax": 3.0, "ratio": 1.25}})
+    served = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_serve(pipe, *args, **kw):
+        served.append(pipe)
+        raise Stop
+
+    monkeypatch.setattr(serve_mod, "serve", fake_serve)
+    with pytest.raises(Stop):
+        serve_mod.main([f if f != "SCALES" else path for f in flags] + ["--device", "cpu"])
+    pipe = served[0]
+    assert pipe.weight_dtype == weight_dtype
+    if weight_dtype == "int8_hybrid":
+        assert pipe._int8_act_scales == {"mid_block.resnets.0.conv1": {"amax": 3.0, "ratio": 1.25}}
+    else:
+        assert pipe._int8_act_scales is None
+

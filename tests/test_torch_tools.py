@@ -1,8 +1,8 @@
 """The port's command-line tools on the CPU: ``tools.generate`` over a small-width
 pipeline (PNG, or ``.npy`` without PIL), ``tools.golden`` (fixtures created, then
 matched or not, and the offline skip), ``tools.selfcheck`` (refuses the CPU,
-skips the shapes the kernels do not take) and ``tools.serve.main`` (int8 refused,
-the card by default)."""
+skips the shapes the kernels do not take) and ``tools.serve.main`` (the int8 flags
+taken, the card by default)."""
 
 import sys
 import urllib.request
@@ -123,8 +123,20 @@ def test_selfcheck_refuses_the_cpu_and_skips_untaken_shapes():
 
 
 @pytest.mark.parametrize("flags", [["--int8"], ["--int8-hybrid", "scales.npz"]])
-def test_serve_refuses_int8(flags, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(flags)
-    assert e.value.code == 2
-    assert "int8 weights (--int8, --int8-hybrid) are not ported" in capsys.readouterr().err
+def test_serve_refuses_int8(flags, monkeypatch):
+    """The int8 flags are ported: ``main`` no longer refuses them and builds its
+    pipeline with them (``tests/test_torch_serve.py`` checks the settings the
+    pipeline gets)."""
+    built = []
+
+    class Stop(Exception):
+        pass
+
+    def factory(**kw):
+        built.append(kw)
+        raise Stop
+
+    monkeypatch.setattr(tpipe, "StableDiffusion", factory)
+    with pytest.raises(Stop):
+        serve.main(flags + ["--device", "cpu"])
+    assert built and built[0]["weight_dtype"] in ("int8", "int8_hybrid")

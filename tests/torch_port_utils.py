@@ -3,6 +3,7 @@ merges file, norm perturbation of JAX params, JAX params loaded into a port
 module through ``weights.from_jax``, and the JAX and port pipelines on the same
 small params."""
 
+import contextlib
 import gzip
 
 import jax
@@ -18,10 +19,12 @@ from minsdtf_tpu.models import unet as junet
 from minsdtf_tpu.models import vae as jvae
 from minsdtf_tpu.pipeline import StableDiffusion as JaxStableDiffusion
 from minsdtf_tpu_torch import StableDiffusion
+from minsdtf_tpu_torch import pipeline as tpipeline
 from minsdtf_tpu_torch.models import clip as tclip
 from minsdtf_tpu_torch.models import controlnet as tcontrolnet
 from minsdtf_tpu_torch.models import unet as tunet
 from minsdtf_tpu_torch.models import vae as tvae
+from minsdtf_tpu_torch.weights import quantize as tquantize
 from minsdtf_tpu_torch.weights.from_jax import from_jax, split_vae
 
 # the pipelines' small widths; the UNet's widths[0] must be 320, the width of the
@@ -183,3 +186,148 @@ def disc_mask(h: int, w: int) -> np.ndarray:
     """An (h, w) uint8 mask, 255 inside a disc about the centre and 0 outside."""
     yy, xx = np.mgrid[:h, :w]
     return np.where(np.hypot(yy - h / 2, xx - w / 2) < min(h, w) / 4, 255, 0).astype(np.uint8)
+
+
+class Int8Replay:
+    """Holds the port's int8 rounding to the JAX package's, so that a comparison of
+    an int8 model measures everything but the ties.
+
+    A rounding boundary of an int8 activation can fall between the two packages'
+    fp32 values (they differ by ~1e-7 relative); the two roundings then differ by
+    one step, and every later int8 site of the model sees inputs that differ by
+    about a step, flips more of its own roundings, and so on
+    (``test_torch_int8_pipeline.py::test_int8_latent_turns_on_rounding_ties``: a
+    1e-6 relative change of the context moves a 3-step CFG 7.5 int8 latent by
+    more than 1e-2, an fp32 one by less than 1e-3). ``recording()`` keeps each of the JAX package's int8
+    activations in call order (through an ordered ``jax.debug.callback``, so also
+    inside its jitted programs); ``replaying()`` checks each of the port's against it:
+    every element that differs must be one step apart with inputs within ``1e-5``
+    of the activation's amax (a tie that fp32 noise decided), and the port then
+    goes on with the JAX package's values. ``flips`` counts them."""
+
+    def __init__(self):
+        self.tape = []
+        self.used = 0
+        self.flips = 0
+
+    @contextlib.contextmanager
+    def recording(self):
+        from minsdtf_tpu.ops import basic as jbasic
+
+        original = jbasic._quantize_acts
+
+        def keep(x, xq):
+            self.tape.append((np.asarray(x, np.float32), np.asarray(xq)))
+
+        def record(x, p, axes):
+            xq, asc = original(x, p, axes)
+            jax.debug.callback(keep, x, xq, ordered=True)
+            return xq, asc
+
+        jax.clear_caches()  # a program traced before would run without the callback
+        jbasic._quantize_acts = record
+        try:
+            yield self
+            jax.effects_barrier()
+        finally:
+            jbasic._quantize_acts = original
+            jax.clear_caches()
+
+    @contextlib.contextmanager
+    def replaying(self):
+        from minsdtf_tpu_torch.ops import basic as tbasic
+
+        original = tbasic._quantize_acts
+
+        def replay(x, site, dims, channel_dim):
+            xq, asc = original(x, site, dims, channel_dim)
+            want_x, want = self.tape[self.used]
+            self.used += 1
+            if channel_dim == 1:  # NHWC -> NCHW
+                want_x, want = want_x.transpose(0, 3, 1, 2), want.transpose(0, 3, 1, 2)
+            got = xq.numpy()
+            assert got.shape == want.shape, (site.name, got.shape, want.shape)
+            differ = got != want
+            if differ.any():
+                steps = np.abs(got[differ].astype(np.int64) - want[differ])
+                gap = np.abs(x.float().numpy()[differ] - want_x[differ]).max()
+                assert steps.max() == 1 and gap <= 1e-5 * np.abs(want_x).max(), (
+                    site.name, int(differ.sum()), int(steps.max()), float(gap))
+                self.flips += int(differ.sum())
+                xq = torch.from_numpy(want.copy())
+            return xq, asc
+
+        tbasic._quantize_acts = replay
+        try:
+            yield self
+        finally:
+            tbasic._quantize_acts = original
+        assert self.used == len(self.tape), (self.used, len(self.tape))
+
+
+# The int8 pipelines against the JAX package's with the ties replayed: what is
+# left is the fp32 difference of the float work, as for the fp32 pipelines
+# (LATENT_TOL); assert_int8_image prints it.
+INT8_LATENT_TOL = 1e-3
+
+
+def int8_pipelines(base, monkeypatch, weight_dtype, **kw):
+    """The JAX and port pipelines made with ``weight_dtype`` (and ``kw``), holding
+    ``base``'s text encoder and VAE; each builds its UNet from ``base``'s small
+    fp32 UNet params through its own ``unet`` property (the random init replaced
+    by those params)."""
+    jbase, tbase = base
+    unet_p = jbase._unet_params
+    monkeypatch.setattr(junet, "init_params",
+                        lambda key, **_: {k: dict(v) for k, v in unet_p.items()})
+    build = tpipeline.build
+    monkeypatch.setattr(tpipeline, "build", lambda factory, device, seed: (
+        load(tunet.UNet(**UNET), unet_p) if factory is tunet.UNet else build(factory, device, seed)))
+    j = JaxStableDiffusion(64, 64, compute_dtype=jnp.float32, bpe_path=jbase.bpe_path,
+                           weight_dtype=weight_dtype, **kw)
+    t = StableDiffusion(64, 64, bpe_path=tbase.bpe_path, compute_dtype=torch.float32,
+                        device="cpu", weight_dtype=weight_dtype, **kw)
+    j._vae_params, j._text_params = jbase._vae_params, jbase._text_params
+    t._encoder, t._decoder, t._text_model = tbase._encoder, tbase._decoder, tbase._text_model
+    return j, t
+
+
+def assert_same_int8_sites(model, jparams):
+    """The port's int8 sites are the JAX params' quantized modules, bit for bit."""
+    sites = tquantize.int8_sites(model)
+    assert set(sites) == {n for n, leaves in jparams.items() if "kernel_q" in leaves}
+    assert sites
+    for name, site in sites.items():
+        want = {k: np.asarray(v) for k, v in jparams[name].items()}
+        q = want["kernel_q"]
+        np.testing.assert_array_equal(site.weight_q.numpy(),
+                                      q.transpose(3, 2, 0, 1) if q.ndim == 4 else q.T)
+        for leaf, got in (("kernel_scale", site.weight_scale), ("act_scale", site.act_scale),
+                          ("act_qmul", site.act_qmul), ("bias", site.bias)):
+            assert (got is None) == (leaf not in want), (name, leaf)
+            if got is not None:
+                np.testing.assert_allclose(got.numpy(), want[leaf], rtol=1e-6, atol=0)
+
+
+def int8_txt2img_pair(j, t, seed: int = 7):
+    """The JAX and port pipelines' 3-step CFG 7.5 txt2img (image, latent), the
+    port's roundings replayed from the JAX run."""
+    replay = Int8Replay()
+    with replay.recording():
+        want = j.generate_image(j._encode_text_dev("hello world"), num_steps=3, seed=seed,
+                                unconditional_guidance_scale=7.5, guidance_rescale=0.7,
+                                return_latent=True)
+    with replay.replaying():
+        got = t.text_to_image("hello world", num_steps=3, seed=seed, return_latent=True)
+    return got, want, replay
+
+
+def assert_int8_image(got, want):
+    (img, lat), (want_img, want_lat) = got, want
+    assert img.shape == want_img.shape == (1, 64, 64, 3) and img.dtype == np.uint8
+    assert np.isfinite(lat).all()
+    print(f"int8 latent max |diff| {np.abs(lat - want_lat).max():.3e} (max |latent| "
+          f"{np.abs(want_lat).max():.3f}), image max |diff| "
+          f"{np.abs(img.astype(int) - want_img.astype(int)).max()}")
+    np.testing.assert_allclose(lat, want_lat, rtol=INT8_LATENT_TOL, atol=INT8_LATENT_TOL)
+    assert np.abs(img.astype(int) - want_img.astype(int)).max() <= 1
