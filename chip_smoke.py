@@ -58,6 +58,26 @@ ControlNet txt2img under int8, 350/1 (11d); and at small widths in fp32 the thre
 paths on the card against the CPU, with the card's int8 roundings held to the
 CPU's ties (``RoundingReplay``; 11e).
 
+Phase 6e settles the t = 999 samplers at CFG 7.5: TCD, LCM and DPM++ 2M Karras at
+phase 6c's small setting in fp64 on the CPU, against which fp32 on the CPU and on
+the card are measured; the card's error may be at most twice the CPU's.
+
+Phase group 12 runs the multi-device layer (``parallel/``, ``ops/ring_attention.py``)
+at full width, 512x512, 25 steps, CFG 7.5, bf16, on phase 5's seeds. The card's
+machine has one GPU, and NCCL takes one GPU per rank, so only 12a runs NCCL (world
+size 1, mesh (1, 1), in this process: ``text_to_image`` with ``mesh=``, and a small
+fp32 run against the CPU); the others spawn ``gloo`` ranks that share the card,
+each rank's launches counted on its own: 12c DP, mesh (2, 1), batch 2, each rank's
+row bit for bit against one device's batch-1 call on the same modules; 12d SP,
+mesh (1, 2), 1024x1024, the ring carrying the 125 self-attentions at 16384 tokens
+and the VAE's (K1 250, K2 0), then a small fp32 SP run (``MINSDTF_SP_MIN_SEQ=1024``)
+against the CPU; 12b TP, mesh (1, 2), K1 at (2,4096,4,40) and (2,1024,4,80) and K2
+path B at (1,4096,1,512) on each rank (250/1), then a small fp32 TP run against
+the CPU; 12e two steps of the small UNet's train step on mesh (2, 2), four ranks,
+against one CPU process (10b's tolerances); 12f the dry run on four ranks. The
+times of group 12 are this one card's: the ranks share it and reach each other
+through host memory.
+
 Exits non-zero on any failure, when no card is visible, or when the port's package
 is not beside this file. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel with its
@@ -160,7 +180,16 @@ SERVE_CASES = [
     ("online", 2, 4096, 4096, 1, 512, bf16, "contiguous"),   # path B: the decoder at batch 2
     ("online", 4, 4096, 4096, 1, 512, bf16, "contiguous"),
 ]
-CASES += BATCH_CASES + SERVE_CASES
+# The shapes that Megatron TP gives K1, each rank running 8 / model heads (phase
+# 12b at model = 2; model = 4 for the record); the on-card tests run them too.
+TP_CASES = [
+    ("onepass", 2, 4096, 4096, 4, 40, bf16, "contiguous"),
+    ("onepass", 2, 1024, 1024, 4, 80, bf16, "contiguous"),
+    ("onepass", 2, 4096, 4096, 2, 40, bf16, "contiguous"),
+    ("onepass", 2, 1024, 1024, 2, 80, bf16, "contiguous"),
+    ("onepass", 2, 4096, 4096, 4, 40, bf16, "adversarial"),
+]
+CASES += BATCH_CASES + SERVE_CASES + TP_CASES
 
 
 def log(*args):
@@ -373,7 +402,7 @@ def phase_check():
 
 def phase_time(gen):
     """Kernel, plain and SDPA times at the shapes of the 512px and 1024px paths, of
-    TCD at batch 8, the two-call CFG path and the server's merged batches, bf16,
+    TCD at batch 8, the two-call CFG path, the server's merged batches and TP, bf16,
     beside the roofline bound and the exponentials' floor: device times from a CUDA
     graph, and the kernel's per-call time in a plain loop of wrapper calls."""
     from minsdtf_tpu_torch.ops import flash_attention as fa
@@ -398,6 +427,10 @@ def phase_time(gen):
         ("onepass", 8, 1024, 8, 80),
         ("online", 2, 4096, 1, 512),
         ("online", 4, 4096, 1, 512),
+        ("onepass", 2, 4096, 4, 40),    # TP at model = 2 (12b), and at model = 4
+        ("onepass", 2, 1024, 4, 80),
+        ("onepass", 2, 4096, 2, 40),
+        ("onepass", 2, 1024, 2, 80),
     ]
     wrappers = _wrappers()
     lib = fa._lib()
@@ -405,8 +438,8 @@ def phase_time(gen):
                      "online": lib.minsdtf_online_bf16_blocks_per_sm}
     timings = {}
     for name, b, s, h, d in timed:
-        q, k, v = qkv(b, s, s, h, d, torch.bfloat16, gen,
-                      "fused_qkv" if d <= 160 else "contiguous")
+        layout = "fused_qkv" if d <= 160 and h == 8 else "contiguous"  # TP: unfused
+        q, k, v = qkv(b, s, s, h, d, torch.bfloat16, gen, layout)
         kern, plain = wrappers[name]
         scale = d ** -0.5
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1997,6 +2030,421 @@ def phase_int8_small(bpe: str) -> bool:
     return all_ok
 
 
+# ---- phase 6e: the t = 999 samplers at CFG 7.5 against fp64 -----------------------
+
+T999_SAMPLERS = ("tcd", "lcm", "dpm_karras")
+T999_RATIO = 2.0  # the card's fp32 error may be at most twice the CPU's
+
+
+def phase_t999(bpe: str) -> bool:
+    """6e: TCD, LCM and DPM++ 2M Karras at phase 6c's small setting (256x256, UNet
+    (320, 64, 128, 128), decoder (192, 64, 32, 32), 3 steps, seed 7) but at CFG
+    7.5: fp64 on the CPU is the reference; fp32 on the CPU and fp32 on the card
+    (TF32 off) are each held against it. The card's latent error must be at most
+    T999_RATIO times the CPU's (``tests/test_torch_fp64_samplers.py`` holds the
+    CPU's)."""
+    from minsdtf_tpu_torch import StableDiffusion
+    from minsdtf_tpu_torch.models import clip as clip_lib
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.models import vae as vae_lib
+
+    models = dict(
+        _unet=unet_lib.fuse_attention_projections(unet_lib.init("cpu", seed=0, **MESH_SMALL)),
+        _decoder=vae_lib.init_decoder("cpu", seed=2, dec_widths=(192, 64, 32, 32)),
+        _text_model=clip_lib.init("cpu", seed=1))
+    all_ok = True
+    for sampler_type in T999_SAMPLERS:
+        runs = {}
+        for label, device, dtype in (("fp64 CPU", "cpu", torch.float64),
+                                     ("fp32 CPU", "cpu", torch.float32),
+                                     ("fp32 card", "cuda", torch.float32)):
+            pipe = StableDiffusion(256, 256, bpe_path=bpe, compute_dtype=dtype, device=device,
+                                   scheduler_type=sampler_type)
+            for name, model in models.items():
+                setattr(pipe, name, model.to(device).eval())
+            runs[label] = pipe.text_to_image("hello world", num_steps=3, seed=7,
+                                             return_latent=True, unconditional_guidance_scale=7.5)
+        (img64, lat64) = runs["fp64 CPU"]
+        errs = {label: float(np.abs(lat - lat64).max()) for label, (_, lat) in runs.items()
+                if label != "fp64 CPU"}
+        img_errs = {label: int(np.abs(img.astype(int) - img64.astype(int)).max())
+                    for label, (img, _) in runs.items() if label != "fp64 CPU"}
+        ratio = errs["fp32 card"] / errs["fp32 CPU"]
+        ok = ratio <= T999_RATIO
+        all_ok &= ok
+        log(f"phase 6e {sampler_type} CFG 7.5 against fp64 on the CPU: latent max_abs_err "
+            f"fp32 CPU {errs['fp32 CPU']:.4e}, fp32 card {errs['fp32 card']:.4e} (card / CPU "
+            f"{ratio:.3f}, limit {T999_RATIO}); image max |diff| {img_errs}; max |latent| "
+            f"{float(np.abs(lat64).max()):.3f} {'ok' if ok else 'FAIL'}")
+    return all_ok
+
+
+# ---- phase group 12: the (data, model) mesh ------------------------------------------
+
+MESH_SMALL = dict(widths=(320, 64, 128, 128), temb_dim=128)
+MESH_TRAIN_BATCH = 4  # 12e: two rows a data rank, at 32x32
+
+
+def mesh_rank_setup() -> int:
+    """What every rank of group 12 does first: TF32 off, as phase 1 sets it.
+    Returns the rank."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.distributed.get_rank()
+
+
+def small_mesh_run(bpe: str, device: str, mesh=None, **kw):
+    """txt2img at 256x256, 3 steps, seed 7, CFG 7.5, fp32, on the small unfused
+    modules (seeds 0, 2, 1; made on the CPU and moved): ``(image, latent)``."""
+    from minsdtf_tpu_torch import StableDiffusion
+    from minsdtf_tpu_torch.models import clip as clip_lib
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.models import vae as vae_lib
+
+    pipe = StableDiffusion(256, 256, bpe_path=bpe, compute_dtype=torch.float32, device=device,
+                           mesh=mesh, **kw)
+    pipe._unet = unet_lib.init("cpu", seed=0, **MESH_SMALL).to(device).eval()
+    pipe._decoder = vae_lib.init_decoder("cpu", seed=2, dec_widths=(192, 64, 32, 32)).to(
+        device).eval()
+    pipe._text_model = clip_lib.init("cpu", seed=1).to(device).eval()
+    return pipe.text_to_image("hello world", num_steps=3, seed=7, return_latent=True)
+
+
+def small_against(got, want) -> tuple:
+    """(latent max abs error, image max |diff|, within 1e-3 and 1)."""
+    (img, lat), (want_img, want_lat) = got, want
+    lat_err = float(np.abs(lat - want_lat).max())
+    img_err = int(np.abs(img.astype(int) - want_img.astype(int)).max())
+    return lat_err, img_err, img.shape == want_img.shape and lat_err <= 1e-3 and img_err <= 1
+
+
+class _ShapeRecorder:
+    """Stands in for the ``flash_attention`` module that ``ops/attention.py`` calls:
+    records the (B, S, H, D) shape of each wrapper call, by kernel, and passes
+    every call and attribute on to the module."""
+
+    def __init__(self, fa, shapes: dict):
+        self._fa, self._shapes = fa, shapes
+
+    def __getattr__(self, name):
+        return getattr(self._fa, name)
+
+    def onepass_attention(self, q, k, v, scale):
+        self._shapes["onepass"].add(tuple(q.shape))
+        return self._fa.onepass_attention(q, k, v, scale)
+
+    def online_attention(self, q, k, v, scale):
+        self._shapes["online"].add(tuple(q.shape))
+        return self._fa.online_attention(q, k, v, scale)
+
+
+@contextlib.contextmanager
+def recording_kernel_shapes():
+    """In the body, the (B, S, H, D) shapes each kernel wrapper is called at by
+    the attention routing, by kernel (a set each); the wrappers and their counts
+    are unchanged."""
+    from minsdtf_tpu_torch.ops import attention
+
+    shapes = {"onepass": set(), "online": set()}
+    fa = attention.fa
+    attention.fa = _ShapeRecorder(fa, shapes)
+    try:
+        yield shapes
+    finally:
+        attention.fa = fa
+
+
+def mesh_timed(generate, images: int, warm: bool = True) -> dict:
+    """``generate()`` once cold and, with ``warm``, once more timed; the timed call
+    returns its latent and runs with the launch, ring and collective counts zeroed
+    just before it and read just after, and the kernels' shapes recorded."""
+    from minsdtf_tpu_torch.ops import ring_attention
+    from minsdtf_tpu_torch.parallel import comm
+
+    cold_s = None
+    if warm:
+        t0 = time.perf_counter()
+        generate()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+    zero_launches()
+    ring_attention.ring_multi_head_attention.calls = 0
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    with recording_kernel_shapes() as shapes:
+        image, latent = generate(return_latent=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(cold_s=cold_s, s_per_img=wall / images, image=image, latent=latent,
+                launches=read_launches(), ring_calls=ring_attention.ring_multi_head_attention.calls,
+                comm=copy.deepcopy(comm.stats), shapes={k: sorted(v) for k, v in shapes.items()})
+
+
+def mesh_rank_pair(bpe: str) -> dict:
+    """One of the two gloo ranks on the card: 12c (DP, mesh (2, 1), batch 2, and
+    this rank's row at batch 1 on one device), 12d (SP, mesh (1, 2), 1024x1024,
+    and the small fp32 SP run with ``MINSDTF_SP_MIN_SEQ=1024``) and 12b (TP, mesh
+    (1, 2), and the small fp32 TP run), on one set of full-width modules (seeds as
+    phase 5, unfused): whole for 12c and 12d, then sharded for 12b."""
+    from minsdtf_tpu_torch import StableDiffusion
+    from minsdtf_tpu_torch import rng as rng_lib
+    from minsdtf_tpu_torch.ops import ring_attention
+    from minsdtf_tpu_torch.parallel.mesh import make_mesh
+
+    rank = mesh_rank_setup()
+    out = {}
+    settings = dict(num_steps=25, unconditional_guidance_scale=7.5, seed=1234)
+    dp = StableDiffusion(512, 512, bpe_path=bpe, mesh=make_mesh(2, 1))
+    out["dp"] = mesh_timed(lambda **kw: dp.text_to_image(PROMPT, batch_size=2, **settings, **kw),
+                           images=2)
+    single = StableDiffusion(512, 512, bpe_path=bpe)
+    for name in ("_unet", "_decoder", "_text_model", "_tokenizer", "_uncond"):
+        setattr(single, name, getattr(dp, name))
+    noise = rng_lib.stateless_normal((2, 64, 64, 4), settings["seed"])[rank]
+    out["dp_single"] = single.generate_image(
+        dp._encode_text_dev(PROMPT), batch_size=1, diffusion_noise=noise, num_steps=25,
+        unconditional_guidance_scale=7.5, guidance_rescale=0.7, return_latent=True)
+
+    sp = StableDiffusion(1024, 1024, bpe_path=bpe, mesh=make_mesh(1, 2), sequence_parallel=True)
+    for name in ("_unet", "_decoder", "_text_model", "_tokenizer"):
+        setattr(sp, name, getattr(dp, name))
+    out["sp"] = mesh_timed(lambda **kw: sp.text_to_image(PROMPT, **settings, **kw), images=1,
+                           warm=False)
+    os.environ["MINSDTF_SP_MIN_SEQ"] = "1024"  # read at construction
+    try:
+        before = ring_attention.ring_multi_head_attention.calls
+        out["sp_small"] = small_mesh_run(bpe, "cuda", make_mesh(1, 2), sequence_parallel=True)
+        out["sp_small_ring_calls"] = ring_attention.ring_multi_head_attention.calls - before
+    finally:
+        del os.environ["MINSDTF_SP_MIN_SEQ"]
+
+    tp = StableDiffusion(512, 512, bpe_path=bpe, mesh=make_mesh(1, 2))
+    for name in ("_unet", "_decoder", "_text_model", "_tokenizer"):
+        setattr(tp, name, getattr(dp, name))
+    out["tp"] = mesh_timed(lambda **kw: tp.text_to_image(PROMPT, **settings, **kw), images=1)
+    out["tp_heads"] = tp.unet.down_blocks[0].attentions[0].transformer_blocks[0].attn1.num_heads
+    out["tp_small"] = small_mesh_run(bpe, "cuda", make_mesh(1, 2))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def mesh_rank_train() -> dict:
+    """12e on one of four gloo ranks, mesh (2, 2): two AdamW steps (lr
+    TRAIN_SMALL_LR) of the small unfused UNet (seed 0) sharded over the model axis,
+    on this rank's rows of one batch of MESH_TRAIN_BATCH at 32x32 drawn on the
+    CPU (seed 1). Returns the losses, this rank's gradients after step 1 and
+    weights after step 2 (on the CPU), its model rank, launches, collectives and
+    the steps' seconds."""
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.parallel import comm, sharding
+    from minsdtf_tpu_torch.parallel.mesh import make_mesh
+    from minsdtf_tpu_torch.training import train_step as ts
+
+    mesh_rank_setup()
+    mesh = make_mesh(2, 2)
+    unet = sharding.shard_module(unet_lib.init("cpu", seed=0, **TRAIN_SMALL).to("cuda"), mesh)
+    batch = ts.sample_batch(MESH_TRAIN_BATCH, latent_hw=32, device="cpu",
+                            generator=torch.Generator().manual_seed(1))
+    local = ts.TrainBatch(*(sharding.shard_batch(t, mesh).to("cuda") for t in batch))
+    init_fn, step_fn = ts.make_train_step(lambda p: ts.adamw(p, lr=TRAIN_SMALL_LR), mesh=mesh)
+    opt = init_fn(unet)
+    zero_launches()
+    comm.reset_stats()
+    losses, seconds, grads = [], [], None
+    for step in range(2):
+        t0 = time.perf_counter()
+        losses.append(step_fn(unet, opt, local).item())
+        seconds.append(time.perf_counter() - t0)
+        if step == 0:
+            grads = {n: p.grad.cpu() for n, p in unet.named_parameters()}
+    return dict(losses=losses, grads=grads, seconds=seconds, launches=read_launches(),
+                params={n: p.detach().cpu() for n, p in unet.named_parameters()},
+                model_rank=mesh.get_local_rank("model"), comm=copy.deepcopy(comm.stats))
+
+
+def train_reference_cpu() -> dict:
+    """12e's reference: the same two steps on one CPU process, unsharded, on the
+    whole batch."""
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.training import train_step as ts
+
+    unet = unet_lib.init("cpu", seed=0, **TRAIN_SMALL)
+    batch = ts.sample_batch(MESH_TRAIN_BATCH, latent_hw=32, device="cpu",
+                            generator=torch.Generator().manual_seed(1))
+    init_fn, step_fn = ts.make_train_step(lambda p: ts.adamw(p, lr=TRAIN_SMALL_LR))
+    opt = init_fn(unet)
+    losses, grads = [], None
+    for step in range(2):
+        losses.append(step_fn(unet, opt, batch).item())
+        if step == 0:
+            grads = {n: p.grad.clone() for n, p in unet.named_parameters()}
+    return dict(losses=losses, grads=grads,
+                params={n: p.detach().clone() for n, p in unet.named_parameters()})
+
+
+def compare_mesh_training(ranks: list, cpu: dict) -> dict:
+    """12e's checks: each rank's losses within TRAIN_LOSS_RTOL of the CPU's, its
+    gradients after step 1 within 10b's tolerances of the matching slices of the
+    CPU's, and at most TRAIN_PARAM_SHARE of its weights after step 2 beyond lr/100."""
+    from minsdtf_tpu_torch.parallel.sharding import shard_tensor
+
+    floor = TRAIN_GRAD_ATOL_MODEL * max(float(g.abs().max()) for g in cpu["grads"].values())
+    numbers = {"loss_rel_err": 0.0, "grad_err_over_tol": 0.0, "param_share_beyond_lr_100": 0.0}
+    for rank in ranks:
+        r = rank["model_rank"]
+        numbers["loss_rel_err"] = max(numbers["loss_rel_err"], max(
+            abs(a - b) / abs(b) for a, b in zip(rank["losses"], cpu["losses"])))
+        diffs = []
+        for name, got in rank["grads"].items():
+            want = shard_tensor(name, cpu["grads"][name], r, 2)
+            atol = max(TRAIN_GRAD_ATOL_REL * float(want.abs().max()), floor)
+            ratio = float(((got - want).abs() / (atol + TRAIN_GRAD_RTOL * want.abs())).max())
+            numbers["grad_err_over_tol"] = max(numbers["grad_err_over_tol"], ratio)
+            diffs.append((rank["params"][name] - shard_tensor(name, cpu["params"][name], r, 2))
+                         .abs().flatten())
+        share = float((torch.cat(diffs) > TRAIN_SMALL_LR / 100).float().mean())
+        numbers["param_share_beyond_lr_100"] = max(numbers["param_share_beyond_lr_100"], share)
+    checks = {
+        f"losses within rtol {TRAIN_LOSS_RTOL}": numbers["loss_rel_err"] <= TRAIN_LOSS_RTOL,
+        "every gradient within its tolerance": numbers["grad_err_over_tol"] <= 1.0,
+        f"at most {TRAIN_PARAM_SHARE} of the weights beyond lr/100":
+            numbers["param_share_beyond_lr_100"] <= TRAIN_PARAM_SHARE,
+        "K1 and K2 launched 0 times": all(
+            rank["launches"] == {"onepass": 0, "online": 0} for rank in ranks),
+    }
+    return dict(numbers, checks=checks)
+
+
+def comm_line(stats: dict) -> str:
+    return ", ".join(f"{kind} {s['calls']} calls {s['bytes'] / 1e6:.3f} MB {s['seconds']:.4f} s"
+                     for kind, s in stats.items() if s["calls"])
+
+
+def image_against(image: np.ndarray, want: np.ndarray) -> str:
+    diff = np.abs(image.astype(int) - want.astype(int))
+    return (f"max |diff| {int(diff.max())}, mean {float(diff.mean()):.4f}, PSNR "
+            f"{psnr(image, want):.3f} dB")
+
+
+def phase_mesh(card: str, bpe: str, image_512: np.ndarray, image_1024: np.ndarray):
+    """Phase group 12. Returns the numbers for ``result.json`` and each run's
+    launches, or None if a check failed. The times are this one card's: gloo ranks
+    share it and reach each other through host memory, which times the port's
+    code, not a multi-GPU machine's interconnect."""
+    import torch.distributed as dist
+
+    from minsdtf_tpu_torch import StableDiffusion
+    from minsdtf_tpu_torch.parallel import dryrun, mesh as mesh_lib
+
+    out, launches, all_ok = {}, {}, True
+    cpu_small = small_mesh_run(bpe, "cpu")
+
+    # 12a: NCCL at world size 1 in this process
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-nccl-") as tmp:
+        mesh_lib.init_process(0, 1, "file://" + os.path.join(tmp, "store"), "nccl", "cuda")
+        try:
+            mesh = mesh_lib.make_mesh(1, 1)
+            a = mesh_timed(txt2img(StableDiffusion(512, 512, bpe_path=bpe, mesh=mesh)), 1)
+            a_small = small_against(small_mesh_run(bpe, "cuda", mesh), cpu_small)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    checks = {"K1/K2 250/1": a["launches"] == {"onepass": 250, "online": 1},
+              "image (1, 512, 512, 3)": a["image"].shape == (1, 512, 512, 3),
+              "small fp32 mesh (1, 1) on the card against the CPU": a_small[2]}
+    log(f"phase 12a NCCL, world 1, mesh (1, 1): {a['s_per_img']:.4f} s/img (cold "
+        f"{a['cold_s']:.3f} s), launches {a['launches']}, collectives {comm_line(a['comm'])}; "
+        f"against phase 5's image (fused projections, no mesh): "
+        f"{image_against(a['image'], image_512)}; small fp32 against the CPU: latent "
+        f"{a_small[0]:.3e}, image {a_small[1]}; checks {checks} | {card}")
+    all_ok &= all(checks.values())
+    launches["nccl_world1"] = a["launches"]
+    out["12a"] = dict(s_per_img=a["s_per_img"], launches=a["launches"], comm=a["comm"],
+                      small_latent_err=a_small[0], psnr_vs_phase5=psnr(a["image"], image_512))
+
+    # 12b, 12c, 12d: two gloo ranks on the card
+    t0 = time.perf_counter()
+    pair = mesh_lib.run_ranks(mesh_rank_pair, 2, args=(bpe,), device="cuda", timeout_s=900)
+    pair_s = time.perf_counter() - t0
+    for r, res in enumerate(pair):
+        dp, sp, tp = res["dp"], res["sp"], res["tp"]
+        img1, lat1 = res["dp_single"]
+        equal = bool(np.array_equal(dp["image"][r:r + 1], img1)) and bool(
+            np.array_equal(dp["latent"][r:r + 1], lat1))
+        tp_small, sp_small = small_against(res["tp_small"], cpu_small), small_against(
+            res["sp_small"], cpu_small)
+        checks = {
+            "12c K1/K2 250/1": dp["launches"] == {"onepass": 250, "online": 1},
+            "12c image (2, 512, 512, 3), both rows on each rank": dp["image"].shape == (2, 512, 512, 3)
+            and np.array_equal(dp["image"], pair[0]["dp"]["image"]),
+            "12c this rank's row equals one device's batch-1 call, bit for bit": equal,
+            "12d K1 250, K2 0": sp["launches"] == {"onepass": 250, "online": 0},
+            "12d ring 126 (125 UNet level 0, 1 VAE)": sp["ring_calls"] == 126,
+            "12d image (1, 1024, 1024, 3)": sp["image"].shape == (1, 1024, 1024, 3),
+            "12d small fp32 SP against the CPU": sp_small[2] and res["sp_small_ring_calls"] > 0,
+            "12b K1/K2 250/1": tp["launches"] == {"onepass": 250, "online": 1},
+            "12b K1 at (2,4096,4,40) and (2,1024,4,80), K2 at (1,4096,1,512)":
+                set(tp["shapes"]["onepass"]) == {(2, 4096, 4, 40), (2, 1024, 4, 80)}
+                and tp["shapes"]["online"] == [(1, 4096, 1, 512)],
+            "12b 4 heads a rank": res["tp_heads"] == 4,
+            "12b small fp32 TP against the CPU": tp_small[2],
+        }
+        all_ok &= all(checks.values())
+        log(f"phase 12c DP rank {r}, gloo, mesh (2, 1), batch 2: {dp['s_per_img']:.4f} s/img "
+            f"(cold call {dp['cold_s']:.3f} s), launches {dp['launches']}, collectives "
+            f"{comm_line(dp['comm'])}; row {r} against one device's batch-1 call: "
+            f"{image_against(dp['image'][r:r + 1], img1)}, latent max |diff| "
+            f"{float(np.abs(dp['latent'][r:r + 1] - lat1).max()):.3e}")
+        log(f"phase 12d SP rank {r}, gloo, mesh (1, 2), 1024x1024: {sp['s_per_img']:.4f} s/img "
+            f"(one call, the first at 1024px), launches {sp['launches']}, ring calls "
+            f"{sp['ring_calls']}, K1 shapes {sp['shapes']['onepass']}, collectives "
+            f"{comm_line(sp['comm'])}; against phase 5b's image: "
+            f"{image_against(sp['image'], image_1024)}; small fp32 SP (min_seq 1024, "
+            f"{res['sp_small_ring_calls']} ring calls) against the CPU: latent "
+            f"{sp_small[0]:.3e}, image {sp_small[1]}")
+        log(f"phase 12b TP rank {r}, gloo, mesh (1, 2): {tp['s_per_img']:.4f} s/img (cold "
+            f"{tp['cold_s']:.3f} s), launches {tp['launches']}, shapes {tp['shapes']}, "
+            f"collectives {comm_line(tp['comm'])}; against phase 5's image: "
+            f"{image_against(tp['image'], image_512)}; small fp32 TP against the CPU: latent "
+            f"{tp_small[0]:.3e}, image {tp_small[1]}; peak memory {res['peak_gb']:.3f} GB; "
+            f"checks {checks} | {card}")
+        for key, run in (("dp", dp), ("sp", sp), ("tp", tp)):
+            launches[f"{key}_rank{r}"] = run["launches"]
+        out[f"rank{r}"] = {
+            key: dict(s_per_img=run["s_per_img"], cold_s=run["cold_s"], launches=run["launches"],
+                      ring_calls=run["ring_calls"], comm=run["comm"])
+            for key, run in (("12c_dp", dp), ("12d_sp", sp), ("12b_tp", tp))}
+        out[f"rank{r}"].update(
+            psnr_12b_vs_phase5=psnr(tp["image"], image_512),
+            psnr_12d_vs_phase5b=psnr(sp["image"], image_1024), dp_row_bit_equal=equal,
+            tp_small_latent_err=tp_small[0], sp_small_latent_err=sp_small[0])
+    log(f"phase 12b-12d: two ranks in {pair_s:.1f} s")
+
+    # 12e: the train step under DP x TP on four gloo ranks
+    cpu_train = train_reference_cpu()
+    train = mesh_lib.run_ranks(mesh_rank_train, 4, device="cuda", timeout_s=600)
+    numbers = compare_mesh_training(train, cpu_train)
+    all_ok &= all(numbers["checks"].values())
+    log(f"phase 12e train step, gloo, mesh (2, 2), widths {TRAIN_SMALL['widths']}, batch "
+        f"{MESH_TRAIN_BATCH} at 32x32, lr {TRAIN_SMALL_LR}, card against one CPU process: "
+        f"losses {[t['losses'] for t in train]} against {cpu_train['losses']}, "
+        f"{ {k: v for k, v in numbers.items() if k != 'checks'} }; step seconds "
+        f"{[t['seconds'] for t in train]}; collectives rank 0 {comm_line(train[0]['comm'])}; "
+        f"checks {numbers['checks']}")
+    out["12e"] = dict(numbers, losses=[t["losses"] for t in train], cpu_losses=cpu_train["losses"],
+                      seconds=[t["seconds"] for t in train])
+
+    # 12f: the dry run on the card
+    t0 = time.perf_counter()
+    lines = dryrun.dryrun(4, "cuda")
+    ok = lines[-1] == "dryrun_multichip OK" and len(lines) == 5
+    all_ok &= ok
+    log(f"phase 12f dryrun --n 4 on the card in {time.perf_counter() - t0:.1f} s: {lines} "
+        f"{'ok' if ok else 'FAIL'}")
+    out["12f"] = dict(lines=lines)
+    return (out, launches) if all_ok else None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2033,6 +2481,7 @@ def main() -> int:
             return 1
         phase_profile(txt2img(pipe_1024), statistics.median(samples_1024), "phase 7b 1024px",
                       "profile_1024.txt")
+        image_1024 = txt2img(pipe_1024)()  # 12d's single-device reference
         del pipe_1024  # the later phases' peak memory holds only the 512px pipeline
         torch.cuda.empty_cache()
         mark("phases 5, 5b and 7b")
@@ -2046,7 +2495,9 @@ def main() -> int:
         mark("phases 5c-5e")
         if not small_reference_check(bpe, tmp):
             return 1
-        mark("phases 6-6c")
+        if not phase_t999(bpe):
+            return 1
+        mark("phases 6-6e")
         s_per_img = statistics.median(samples)
         phase7 = {}
         phase_profile(txt2img(pipe), s_per_img, "phase 7", "profile.txt", details=phase7)
@@ -2080,7 +2531,8 @@ def main() -> int:
     mark("phases 10a-10b")
     with tempfile.TemporaryDirectory(prefix="chip-smoke-int8-") as tmp:
         bpe = synthetic_merges(tmp)
-        int8 = phase_int8(bpe, txt2img(pipe)(), tmp, phase7)
+        image_512 = txt2img(pipe)()  # phase 5's image again, for 11a and group 12
+        int8 = phase_int8(bpe, image_512, tmp, phase7)
         if int8 is None:
             return 1
         int8_results, int8_launches = int8
@@ -2089,6 +2541,12 @@ def main() -> int:
         if not phase_int8_small(bpe):
             return 1
     mark("phases 11a-11f")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        mesh = phase_mesh(card, synthetic_merges(tmp), image_512, image_1024)
+    if mesh is None:
+        return 1
+    mesh_results, mesh_launches = mesh
+    mark("phases 12a-12f")
     new_paths.update(samplers)
 
     rows = []
@@ -2105,6 +2563,7 @@ def main() -> int:
                         for path in ("generate_images", "serve")},
                      "launches_training": training["full_width"]["launches"][name],
                      **{f"launches_{path}": n[name] for path, n in int8_launches.items()},
+                     **{f"launches_{path}": n[name] for path, n in mesh_launches.items()},
                      "max_abs_err": errors[name],
                      **{k: main_shape[k] for k in ("ms", "loop_ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms", "shape")},
@@ -2117,7 +2576,7 @@ def main() -> int:
                       for key, value in (("s_per_img", statistics.median(warm)),
                                          ("s_per_img_samples", warm), ("peak_gb", peak))},
                    "checkpoints": ckpt_numbers, "serving": serving, "training": training,
-                   "int8": int8_results, "kernels": rows}, f, indent=1)
+                   "int8": int8_results, "mesh": mesh_results, "kernels": rows}, f, indent=1)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -43,6 +43,7 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(EMBED_DIM)
         self.self_attn = nn.Module()
+        self.self_attn.num_heads = NUM_HEADS  # this rank's heads under TP
         for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self.self_attn, proj, nn.Linear(EMBED_DIM, EMBED_DIM))
         self.layer_norm2 = nn.LayerNorm(EMBED_DIM)
@@ -54,7 +55,8 @@ class EncoderLayer(nn.Module):
         a = self.self_attn
         h = _ln(self.layer_norm1, x)
         attn = multi_head_attention(apply_dense(a.q_proj, h), apply_dense(a.k_proj, h),
-                                    apply_dense(a.v_proj, h), num_heads=NUM_HEADS, causal=True)
+                                    apply_dense(a.v_proj, h), num_heads=a.num_heads,
+                                    causal=True)
         x = x + apply_dense(a.out_proj, attn)
         h = quick_gelu(apply_dense(self.mlp.fc1, _ln(self.layer_norm2, x)))
         return x + apply_dense(self.mlp.fc2, h)

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from minsdtf_tpu_torch.ops.basic import conv2d, dense, int8_conv2d, int8_dense
+from minsdtf_tpu_torch.parallel.sharding import ParallelLinear
 
 _WEIGHT_MODULES = (nn.Conv2d, nn.Linear, nn.Embedding)
 _NORM_MODULES = (nn.GroupNorm, nn.LayerNorm)
@@ -99,8 +100,12 @@ def apply_conv(m: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
 
 
 def apply_dense(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """:func:`ops.basic.dense` with ``m``'s weight and bias, or
-    :func:`ops.basic.int8_dense` where ``m`` is an :class:`Int8Site`."""
+    """:func:`ops.basic.dense` with ``m``'s weight and bias,
+    :func:`ops.basic.int8_dense` where ``m`` is an :class:`Int8Site`, or ``m``'s
+    own forward where it is a TP shard
+    (:class:`minsdtf_tpu_torch.parallel.sharding.ParallelLinear`)."""
     if isinstance(m, Int8Site):
         return int8_dense(x, m)
+    if isinstance(m, ParallelLinear):
+        return m(x)
     return dense(x, m.weight, m.bias)

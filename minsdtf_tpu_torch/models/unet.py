@@ -61,10 +61,13 @@ class ResBlock(nn.Module):
 class CrossAttention(nn.Module):
     """No-bias q/k/v projections, biased out-projection; ``context`` is ``x`` for
     self-attention. After :meth:`fuse`, self-attention runs q/k/v as one (C, 3C)
-    product (``to_qkv``) and cross-attention k/v as one (``to_kv``)."""
+    product (``to_qkv``) and cross-attention k/v as one (``to_kv``). ``num_heads``
+    is this rank's head count (8 // model under TP,
+    :func:`minsdtf_tpu_torch.parallel.sharding.tp_shard`)."""
 
     def __init__(self, c: int, context_dim: int):
         super().__init__()
+        self.num_heads = NUM_HEADS
         self.to_q = nn.Linear(c, c, bias=False)
         self.to_k = nn.Linear(context_dim, c, bias=False)
         self.to_v = nn.Linear(context_dim, c, bias=False)
@@ -89,7 +92,7 @@ class CrossAttention(nn.Module):
             q = apply_dense(self.to_q, x)
             k = apply_dense(self.to_k, context)
             v = apply_dense(self.to_v, context)
-        return apply_dense(self.to_out[0], multi_head_attention(q, k, v, num_heads=NUM_HEADS))
+        return apply_dense(self.to_out[0], multi_head_attention(q, k, v, num_heads=self.num_heads))
 
 
 class GEGLUProj(nn.Module):

@@ -55,6 +55,7 @@ class VAEResBlock(nn.Module):
 class VAEAttention(nn.Module):
     def __init__(self, c: int):
         super().__init__()
+        self.num_heads = 1  # single-head: TP keeps it whole
         self.group_norm = norm(c)
         self.to_q = nn.Linear(c, c)
         self.to_k = nn.Linear(c, c)

@@ -3,10 +3,21 @@
 Heads are split as views (no copy). :func:`flash_attention.route` sends each
 call to K1, K2 or :func:`plain_attention`; the plain path serves what never
 reaches a kernel: cross-attention (kv = 77), the 16x16 and 8x8 UNet levels
-(kv < 512) and CLIP's causal attention. Inside :func:`plain_scope` every call
-runs :func:`plain_attention` instead: it is the one path with a backward, so the
-train step selects it by name. The scope holds for the current thread (or task)
-only. Softmax statistics are fp32 whatever the compute dtype.
+(kv < 512), CLIP's causal attention, and fp64 (reference runs; no kernel is
+built for it). Inside :func:`plain_scope` every call runs :func:`plain_attention`
+instead: it is the one path with a backward, so the train step selects it by name.
+
+Inside :func:`sequence_parallel_scope` a self-attention (not causal, as many keys
+as queries) over at least ``min_seq`` tokens that the mesh axis divides runs as
+ring attention (:mod:`ops.ring_attention`), before any other route is chosen, as
+in the JAX package (``minsdtf_tpu/ops/attention.py:136-145``). So inside both
+scopes the ring runs: ``plain_scope`` never wins over SP, and the JAX train step
+never runs under SP either (``make_train_step`` enters ``plain_scope`` only). The
+ring has no backward and raises if asked for a gradient, as the kernels do.
+
+Each scope holds for the current thread (or task) only; the JAX package's
+sequence-parallel setting is process-global. Softmax statistics are fp32 whatever
+the compute dtype (fp64 in fp64).
 """
 
 from __future__ import annotations
@@ -18,8 +29,13 @@ from typing import Iterator, Optional
 import torch
 
 from minsdtf_tpu_torch.ops import flash_attention as fa
+from minsdtf_tpu_torch.ops.basic import stats_dtype
+from minsdtf_tpu_torch.ops.ring_attention import ring_multi_head_attention
+from minsdtf_tpu_torch.parallel.mesh import axis_size
 
 _PLAIN = contextvars.ContextVar("minsdtf_plain_attention", default=False)
+# (mesh, axis_name, min_seq) or None
+_SP = contextvars.ContextVar("minsdtf_sequence_parallel", default=None)
 
 
 @contextlib.contextmanager
@@ -34,12 +50,39 @@ def plain_scope() -> Iterator[None]:
         _PLAIN.reset(token)
 
 
+@contextlib.contextmanager
+def sequence_parallel_scope(mesh, axis_name: str = "model",
+                            min_seq: int = 16384) -> Iterator[None]:
+    """In the body of a ``with`` block, in this thread, a self-attention over at
+    least ``min_seq`` tokens (the 1024px latent's 128x128 by default; smaller
+    attentions stay whole, their blocks too small to pay for the ring's
+    transfers) that the size of ``mesh``'s ``axis_name`` divides runs as ring
+    attention over that axis. ``mesh=None`` turns it off. The previous setting
+    comes back on exit."""
+    token = _SP.set(None if mesh is None else (mesh, axis_name, int(min_seq)))
+    try:
+        yield
+    finally:
+        _SP.reset(token)
+
+
+def sequence_parallel_key():
+    """The identity of this thread's SP setting: None, or ``(axis_name, min_seq,
+    (("data", d), ("model", m)))`` as the JAX package's key."""
+    sp = _SP.get()
+    if sp is None:
+        return None
+    mesh, axis_name, min_seq = sp
+    return (axis_name, min_seq, tuple(zip(mesh.mesh_dim_names, mesh.shape)))
+
+
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                     causal: bool = False) -> torch.Tensor:
     """(B, S, H, D) attention with fp32 scores and softmax; the PV product runs in
-    the compute dtype (fp32 when the inputs are fp32). Counterpart of the JAX
-    package's ``_xla_attention``."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    the compute dtype (fp32 when the inputs are fp32, fp64 throughout in fp64).
+    Counterpart of the JAX package's ``_xla_attention``."""
+    wide = stats_dtype(q.dtype)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(wide), k.to(wide)) * scale
     if causal:
         sq, sk = scores.shape[-2], scores.shape[-1]
         mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(sk - sq)
@@ -57,10 +100,17 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_
     d = hd // num_heads
     if scale is None:
         scale = float(d) ** -0.5
+    sp = _SP.get()
+    if sp is not None and not causal and sq == sk:
+        mesh, axis_name, min_seq = sp
+        n = axis_size(mesh, axis_name)
+        if n > 1 and sq >= min_seq and sq % n == 0:
+            return ring_multi_head_attention(q, k, v, num_heads, mesh, axis_name, scale=scale)
     qh = q.unflatten(-1, (num_heads, d))
     kh = k.unflatten(-1, (num_heads, d))
     vh = v.unflatten(-1, (num_heads, d))
-    impl = "plain" if _PLAIN.get() else fa.route(sq, sk, d, causal)
+    plain = _PLAIN.get() or q.dtype == torch.float64
+    impl = "plain" if plain else fa.route(sq, sk, d, causal)
     if impl == "onepass":
         out = fa.onepass_attention(qh, kh, vh, scale)
     elif impl == "online":

@@ -25,6 +25,12 @@ import torch.nn.functional as F
 Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
 
 
+def stats_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of statistics and sums for activations of ``dtype``: fp32, or
+    fp64 for fp64 (the reference runs that bound fp32's rounding)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
     return None if t is None else t.to(dtype)
 
@@ -54,8 +60,10 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over the channel axis of NCHW, fp32 statistics and affine."""
-    out = F.group_norm(x.float(), num_groups, weight.float(), bias.float(), eps)
+    """GroupNorm over the channel axis of NCHW, fp32 statistics and affine (fp64
+    in fp64)."""
+    wide = stats_dtype(x.dtype)
+    out = F.group_norm(x.to(wide), num_groups, weight.to(wide), bias.to(wide), eps)
     return out.to(x.dtype)
 
 
@@ -68,7 +76,8 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis, fp32 statistics and affine."""
-    out = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps)
+    wide = stats_dtype(x.dtype)
+    out = F.layer_norm(x.to(wide), (x.shape[-1],), weight.to(wide), bias.to(wide), eps)
     return out.to(x.dtype)
 
 

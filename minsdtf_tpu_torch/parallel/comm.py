@@ -1,0 +1,106 @@
+"""The collectives the port uses, in one place: a sum all-reduce over a group, an
+all-gather over a group, and the ring shift of ring attention.
+
+Every call waits with a timeout, :data:`TIMEOUT`, which
+:func:`minsdtf_tpu_torch.parallel.mesh.init_process` also gives the process
+group, so a rank that dies fails its peers' calls instead of hanging them.
+
+What ``gloo`` takes on CUDA tensors: its all-reduce and all-gather have CUDA
+paths (they stage through host memory themselves); its send and recv read the
+tensor's pointer as host memory. So :func:`ring_shift` stages CUDA tensors
+through pinned host buffers when the group's backend is ``gloo``, chosen by the
+backend's name; NCCL takes them as they are. The all-reduce sums bf16 and fp16
+in fp32 and rounds once, whatever the backend.
+
+:data:`stats` counts each kind of call, its bytes and the host seconds it held
+the caller (the wait included); :func:`reset_stats` zeroes it.
+"""
+
+from __future__ import annotations
+
+import datetime
+import time
+from typing import List, Sequence
+
+import torch
+import torch.distributed as dist
+
+TIMEOUT = datetime.timedelta(seconds=300)
+_KINDS = ("all_reduce", "all_gather", "ring_shift")
+stats = {kind: {"calls": 0, "bytes": 0, "seconds": 0.0} for kind in _KINDS}
+
+
+def reset_stats() -> None:
+    for entry in stats.values():
+        entry.update(calls=0, bytes=0, seconds=0.0)
+
+
+def _count(kind: str, nbytes: int, t0: float) -> None:
+    entry = stats[kind]
+    entry["calls"] += 1
+    entry["bytes"] += nbytes
+    entry["seconds"] += time.perf_counter() - t0
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, as a new tensor of ``t``'s dtype. Half
+    types are summed in fp32."""
+    t0 = time.perf_counter()
+    wide = torch.promote_types(t.dtype, torch.float32)
+    out = t.to(wide, copy=True, memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group, async_op=True).wait(TIMEOUT)
+    _count("all_reduce", out.numel() * out.element_size(), t0)
+    return out.to(t.dtype)
+
+
+def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` of ``group``, concatenated along ``dim`` in group-rank
+    order."""
+    t0 = time.perf_counter()
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group, async_op=True).wait(TIMEOUT)
+    _count("all_gather", t.numel() * t.element_size() * len(parts), t0)
+    return torch.cat(parts, dim=dim)
+
+
+class _Shift:
+    """A posted ring shift; :meth:`wait` returns the received tensors on the
+    senders' device."""
+
+    def __init__(self, works, received: List[torch.Tensor], device: torch.device,
+                 nbytes: int, t0: float):
+        self._works, self._received, self._device = works, received, device
+        self._nbytes, self._seconds = nbytes, time.perf_counter() - t0
+
+    def wait(self) -> List[torch.Tensor]:
+        t0 = time.perf_counter()
+        for work in self._works:
+            work.wait(TIMEOUT)
+        out = [r.to(self._device, non_blocking=True) for r in self._received]
+        _count("ring_shift", self._nbytes, t0 - self._seconds)
+        return out
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], group) -> _Shift:
+    """Post the send of each tensor to the next rank of ``group`` and the receive
+    of the previous rank's, and return at once; ``.wait()`` gives the received
+    tensors. Over ``gloo`` CUDA tensors are copied to pinned host buffers first
+    (the copy waits for their producers) and the receives land in pinned buffers."""
+    t0 = time.perf_counter()
+    ranks = dist.get_process_group_ranks(group)
+    me = dist.get_rank(group)
+    nxt, prev = ranks[(me + 1) % len(ranks)], ranks[(me - 1) % len(ranks)]
+    device = tensors[0].device
+    staged = device.type == "cuda" and dist.get_backend(group) == "gloo"
+    ops, received = [], []
+    for t in tensors:
+        t = t.contiguous()
+        if staged:
+            t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+        buf = torch.empty_like(t)
+        ops += [dist.P2POp(dist.isend, t, nxt, group), dist.P2POp(dist.irecv, buf, prev, group)]
+        received.append(buf)
+    works = dist.batch_isend_irecv(ops)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return _Shift(works, received, device, nbytes, t0)

@@ -44,6 +44,20 @@ the scales. The weights are quantized from fp32, after the LoRA merge and the
 projections' fusion and before the cast; the text encoder and the VAE stay in
 the compute dtype.
 
+``mesh`` (a ``(data, model)`` mesh, :mod:`parallel.mesh`) runs the pipeline as one
+rank of an SPMD world: every rank makes the same calls. The UNet, ControlNet and
+CLIP are Megatron-sharded over the model axis (:func:`parallel.sharding.shard_module`;
+the projections are not fused under a mesh, as in the JAX pipeline), the batch is
+split over the data axis: every rank builds the whole batch's host inputs from the
+seed (noise, step noise, contexts, inpaint and control inputs), runs the sampler on
+its rows, and the images and latents are all-gathered, so every rank returns what
+one device would. ``batch_size`` must be a multiple of the data axis.
+``sequence_parallel=True`` keeps the weights whole and runs each self-attention
+over ``MINSDTF_SP_MIN_SEQ`` tokens or more (read at construction, default 16384:
+the 1024px latent) as ring attention over the model axis
+(:func:`ops.attention.sequence_parallel_scope`, entered per generation call).
+``weight_dtype`` and ``mesh`` together raise ``ValueError``, as in the JAX pipeline.
+
 The reference-compatible handles (``diffusion_model``, ``text_clip_embedding``,
 ``text_encoder``, ``image_encoder``, ``image_decoder``, ``hint_net``,
 ``control_net``) take and return numpy arrays in the JAX package's layouts (NHWC
@@ -53,6 +67,7 @@ call, and run on the pipeline's device.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 from typing import Callable, List, Optional, Sequence, Union
@@ -70,6 +85,9 @@ from minsdtf_tpu_torch.models import controlnet as controlnet_lib
 from minsdtf_tpu_torch.models import unet as unet_lib
 from minsdtf_tpu_torch.models import vae as vae_lib
 from minsdtf_tpu_torch.models.common import build, cast_weights_
+from minsdtf_tpu_torch.ops import attention as attention_ops
+from minsdtf_tpu_torch.parallel import sharding
+from minsdtf_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size
 from minsdtf_tpu_torch.text import prompt_weighting as lpw
 from minsdtf_tpu_torch.text.tokenizer import ClipTokenizer
 from minsdtf_tpu_torch.weights import calibrate, convert, quantize, textual_inversion
@@ -155,6 +173,8 @@ class StableDiffusion:
         prediction_type: str = "epsilon",
         weight_dtype: Optional[str] = None,
         int8_act_scales=None,
+        mesh=None,
+        sequence_parallel: bool = False,
     ):
         self.img_height = int(img_height)
         self.img_width = int(img_width)
@@ -171,7 +191,14 @@ class StableDiffusion:
         if weight_dtype not in WEIGHT_DTYPES:
             raise ValueError(
                 f"weight_dtype must be None, 'int8' or 'int8_hybrid', got {weight_dtype!r}")
+        if weight_dtype is not None and mesh is not None:
+            raise ValueError(
+                "weight_dtype='int8' is single-device only for now (the TP sharding "
+                "rules operate on float kernels)")
         self.weight_dtype = weight_dtype
+        self.mesh = mesh
+        self.sequence_parallel = bool(sequence_parallel) and mesh is not None
+        self._sp_min_seq = int(os.environ.get("MINSDTF_SP_MIN_SEQ", 16384))
         if isinstance(int8_act_scales, (str, os.PathLike)):
             int8_act_scales = calibrate.load_scales(str(int8_act_scales))
         self._int8_act_scales = int8_act_scales
@@ -286,13 +313,32 @@ class StableDiffusion:
                                               **self._hybrid_cfg)
         return model
 
+    def _placed(self, attr: str) -> Optional[nn.Module]:
+        """The module held in ``attr``, placed on the mesh at its first use: sharded
+        over the model axis, or whole under sequence parallelism (every rank's
+        weights checked equal either way). Without a mesh, as it is. A module
+        assigned to ``attr`` is placed the same way, and a whole module placed by
+        another pipeline is placed again for this one."""
+        model = getattr(self, attr)
+        if model is None or self.mesh is None:
+            return model
+        want = 1 if self.sequence_parallel else axis_size(self.mesh, MODEL_AXIS)
+        if getattr(model, "placed_over", None) == want:
+            return model
+        if want == 1:
+            sharding.replicate_module(model, self.mesh)
+        else:
+            sharding.shard_module(model, self.mesh)
+        model.placed_over = want  # the model axis it was placed over
+        return model
+
     @property
     def unet(self) -> unet_lib.UNet:
         if self._unet is None:
             self._unet = self._load_or_init(self.unet_ckpt, "unet", unet_lib.UNet, 0,
-                                            lora=self.unet_lora, fuse=True,
+                                            lora=self.unet_lora, fuse=self.mesh is None,
                                             quantize_fn=self._quantize_unet)
-        return self._unet
+        return self._placed("_unet")
 
     @property
     def text_model(self) -> clip_lib.CLIPTextModel:
@@ -300,19 +346,19 @@ class StableDiffusion:
             self._text_model = self._load_or_init(self.text_encoder_ckpt, "text_encoder",
                                                   clip_lib.CLIPTextModel, 1,
                                                   lora=self.text_encoder_lora)
-        return self._text_model
+        return self._placed("_text_model")
 
     @property
     def decoder(self) -> vae_lib.VAEDecoder:
         if self._decoder is None:
             self._decoder = self._load_or_init(self.vae_ckpt, "vae", vae_lib.VAEDecoder, 2, part=1)
-        return self._decoder
+        return self._placed("_decoder")
 
     @property
     def encoder(self) -> vae_lib.VAEEncoder:
         if self._encoder is None:
             self._encoder = self._load_or_init(self.vae_ckpt, "vae", vae_lib.VAEEncoder, 4, part=0)
-        return self._encoder
+        return self._placed("_encoder")
 
     @property
     def controlnet(self) -> Optional[controlnet_lib.ControlNet]:
@@ -321,9 +367,10 @@ class StableDiffusion:
         assigned to ``_controlnet``, or None."""
         if self._controlnet is None and self.controlnet_path is not None:
             self._controlnet = self._load_or_init(
-                self.controlnet_path, "controlnet", controlnet_lib.ControlNet, 3, fuse=True,
+                self.controlnet_path, "controlnet", controlnet_lib.ControlNet, 3,
+                fuse=self.mesh is None,
                 quantize_fn=quantize.quantize_params if self.weight_dtype == "int8" else None)
-        return self._controlnet
+        return self._placed("_controlnet")
 
     @property
     def tokenizer(self) -> ClipTokenizer:
@@ -428,6 +475,26 @@ class StableDiffusion:
         return hit
 
     # ---- generation -------------------------------------------------------------
+
+    def _sp_scope(self):
+        """Sequence parallelism over the model axis for the body of a ``with``
+        block, when the pipeline runs it; else nothing."""
+        if not self.sequence_parallel:
+            return contextlib.nullcontext()
+        return attention_ops.sequence_parallel_scope(self.mesh, MODEL_AXIS, self._sp_min_seq)
+
+    def _data_rows(self, batch: int) -> Callable:
+        """``rows(t, dim=0)``: this data rank's rows of ``t`` where its ``dim`` holds
+        the whole batch of ``batch``, else ``t``; the identity without DP. Raises
+        ``ValueError`` where the data axis does not divide ``batch``."""
+        n = 1 if self.mesh is None else axis_size(self.mesh, DATA_AXIS)
+        if n == 1:
+            return lambda t, dim=0: t
+        if batch % n:
+            raise ValueError(f"batch_size={batch} cannot be split over data={n}; "
+                             "use a multiple of the mesh's data axis")
+        return lambda t, dim=0: (t if t.shape[dim] != batch
+                                 else sharding.shard_batch(t, self.mesh, dim))
 
     def text_to_image(
         self,
@@ -563,13 +630,17 @@ class StableDiffusion:
         device, and nothing waits for the card: the caller turns them into numpy
         with :func:`fetch`, so the host can queue the next request meanwhile
         (:meth:`generate_images`). img2img and inpaint still wait once, for the
-        encoded reference latent (:meth:`_encode_image`)."""
+        encoded reference latent (:meth:`_encode_image`).
+
+        Under a mesh with a data axis of n, ``batch_size`` must be a multiple of n:
+        each rank samples its rows and the results are gathered."""
         if diffusion_noise is not None and seed is not None:
             raise ValueError("`diffusion_noise` and `seed` should not both be passed to "
                              "`generate_image`.")
         if control_net_image is not None and self.controlnet is None:
             raise ValueError("`control_net_image` needs a ControlNet; none is loaded")
         h8, w8 = self.img_height // 8, self.img_width // 8
+        rows = self._data_rows(batch_size)
         context = to_device(encoded_text, self.device, torch.float32)
         if context.dim() == 2:
             context = context[None]
@@ -609,7 +680,7 @@ class StableDiffusion:
                 pixel_mask, latent_mask = imaging.preprocess_mask(
                     inpaint_mask, self.img_height, self.img_width, mask_blur_strength)
                 inpaint = sampler.Inpaint(*(
-                    to_device(a, self.device)
+                    rows(to_device(a, self.device))
                     for a in (init_latent, noise, latent_mask, image01, pixel_mask)))
         else:
             latent0 = noise
@@ -620,18 +691,24 @@ class StableDiffusion:
             arr = imaging.bilinear_resize(imaging.load_image(control_net_image, "RGB"),
                                           self.img_height, self.img_width)
             cn_img = np.tile((np.asarray(arr, np.float32) / 255.0)[None], (batch_size, 1, 1, 1))
-            hint = self._hint(cn_img)
+            hint = rows(self._hint(cn_img))
 
         step_noise = None
         if schedule.mode in sampler.NOISY_MODES or (schedule.mode == "tcd" and eta > 0.0):
             step_noise = draw_step_noise(key_seed, (schedule.num_steps, *latent0.shape))
-            step_noise = to_device(step_noise, self.device)
-        image, latent, *trajectory = sampler.generate(
-            self.unet, self.decoder, latent0, context, uncond, t_embs, schedule.rows,
-            float(unconditional_guidance_scale), float(guidance_rescale),
-            controlnet=self.controlnet if hint is not None else None, hint=hint,
-            inpaint=inpaint, callback=callback, mode=schedule.mode, step_noise=step_noise,
-            v_prediction=self.prediction_type == "v", trace_latents=return_trajectory)
+            step_noise = rows(to_device(step_noise, self.device), 1)
+        with self._sp_scope():
+            image, latent, *trajectory = sampler.generate(
+                self.unet, self.decoder, rows(latent0), rows(context),
+                None if uncond is None else rows(uncond), t_embs, schedule.rows,
+                float(unconditional_guidance_scale), float(guidance_rescale),
+                controlnet=self.controlnet if hint is not None else None, hint=hint,
+                inpaint=inpaint, callback=callback, mode=schedule.mode,
+                step_noise=step_noise, v_prediction=self.prediction_type == "v",
+                trace_latents=return_trajectory)
+        if self.mesh is not None:
+            image, latent = (sharding.gather_batch(t, self.mesh) for t in (image, latent))
+            trajectory = [sharding.gather_batch(t, self.mesh, 1) for t in trajectory]
         out = [image]
         if return_latent:
             out.append(latent.float())
@@ -724,7 +801,8 @@ class StableDiffusion:
         waits for the card: the start latent is formed there, in the JAX
         pipeline's rounding."""
         x = to_device(image_tensor, self.device).to(self.compute_dtype)
-        return self.encoder(x).float().cpu().numpy()
+        with self._sp_scope():
+            return self.encoder(x).float().cpu().numpy()
 
     @torch.inference_mode()
     def _hint(self, cn_img: np.ndarray) -> torch.Tensor:

@@ -20,14 +20,16 @@ from typing import Callable, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
+from minsdtf_tpu_torch.ops.basic import stats_dtype
 from minsdtf_tpu_torch.scheduler import MODES
 
 
 def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float, epsilon: float = 1e-5):
     """Std-matching CFG rescale; the identity when ``guidance_rescale == 0``."""
     dims = tuple(range(1, noise_cfg.dim()))
-    std_text = noise_pred_text.float().std(dim=dims, keepdim=True, correction=0)
-    std_cfg = noise_cfg.float().std(dim=dims, keepdim=True, correction=0) + epsilon
+    wide = stats_dtype(noise_cfg.dtype)
+    std_text = noise_pred_text.to(wide).std(dim=dims, keepdim=True, correction=0)
+    std_cfg = noise_cfg.to(wide).std(dim=dims, keepdim=True, correction=0) + epsilon
     rescaled = noise_cfg * (std_text / std_cfg).to(noise_cfg.dtype)
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
 
@@ -81,6 +83,7 @@ def generate(
     if mode in NOISY_MODES and step_noise is None:
         raise ValueError(f"mode {mode!r} needs step_noise")
     dtype = latent0.dtype
+    wide = stats_dtype(dtype)  # the update's dtype: fp32, fp64 in fp64
     batch = latent0.shape[0]
     n_steps = t_embs.shape[0]
     if step_noise is not None and tuple(step_noise.shape) != (n_steps, *latent0.shape):
@@ -122,8 +125,8 @@ def generate(
                 cond = one_pass(latent, t_emb.expand(batch, -1), context, hint)
             merged = uncond + guidance_scale * (cond - uncond)
             out = rescale_noise_cfg(merged, cond, guidance_rescale)
-        out = out.float()
-        lat32 = latent.float()
+        out = out.to(wide)
+        lat32 = latent.to(wide)
         r = {k: v[i] for k, v in rows.items()}
         if v_prediction:
             # v = sr*eps - nr*x0  =>  x0 = sr*x - nr*v, eps = nr*x + sr*v
@@ -158,14 +161,14 @@ def generate(
             new = origin * (1.0 - m) + new * m
         latent = new.to(dtype)
         if trace_latents:
-            trajectory.append(latent.float())
+            trajectory.append(latent.to(wide))
         if callback is not None:
             callback(i + 1)
     traced = (torch.stack(trajectory),) if trace_latents else ()
 
     if decoder is None:
         return (None, latent, *traced)
-    image = (decoder(latent).float() + 1.0) * 0.5
+    image = (decoder(latent).to(wide) + 1.0) * 0.5
     if inpaint is not None:
         pm = inpaint.pixel_mask
         image = inpaint.image01 * (1.0 - pm) + image * pm

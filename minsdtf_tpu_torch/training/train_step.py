@@ -9,6 +9,14 @@ Attention runs the plain path, selected by name around the forward and the
 backward (:func:`minsdtf_tpu_torch.ops.attention.plain_scope`): K1 and K2 have no
 backward, as the JAX kernels have none, and their wrappers raise if asked for a
 gradient. Nothing falls back quietly.
+
+Under a mesh (``make_train_step(mesh=...)``) each rank takes the step on its rows
+of the batch (:func:`minsdtf_tpu_torch.parallel.sharding.shard_batch`) with the
+UNet TP-sharded (:func:`~minsdtf_tpu_torch.parallel.sharding.shard_module`):
+the TP gradients come from Megatron's ``f``/``g``, and after ``backward()`` every
+gradient is averaged over the data axis, in one all-reduce, before the optimizer
+steps. The returned loss is the mean over the whole batch, which is what the JAX
+package's GSPMD step returns.
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ from torch import nn
 
 from minsdtf_tpu_torch import scheduler as sched_lib
 from minsdtf_tpu_torch.ops import attention
+from minsdtf_tpu_torch.parallel import comm
+from minsdtf_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
 
 
 class TrainBatch(NamedTuple):
@@ -55,13 +65,15 @@ def adamw(params: Iterable[nn.Parameter], lr: float = 1e-5) -> torch.optim.Optim
 def make_train_step(
     optimizer: Optional[Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]] = None,
     num_train_timesteps: int = 1000,
+    mesh=None,
 ):
     """-> (init_fn, step_fn). ``init_fn(unet)`` returns the optimizer over the
     UNet's parameters (``optimizer(params)``, :func:`adamw` by default);
     ``step_fn(unet, opt, batch)`` takes one step in place and returns the loss
     before it as a 0-d tensor on the UNet's device. The UNet's attention
     projections may be fused or not: AdamW is elementwise, so both give the same
-    update."""
+    update. With ``mesh``, ``step_fn`` takes this rank's rows and a UNet sharded
+    over the mesh, and returns the whole batch's loss (module docstring)."""
     optimizer = optimizer or adamw
     sched = sched_lib.Scheduler(active_tcd=False, num_train_timesteps=num_train_timesteps)
     host_rates = (sched.signal_rates.astype(np.float32), sched.noise_rates.astype(np.float32))
@@ -78,10 +90,28 @@ def make_train_step(
         with attention.plain_scope():
             loss = denoising_loss(unet, batch, *rates[device])
             loss.backward()
+        loss = loss.detach()
+        if mesh is not None and axis_size(mesh, DATA_AXIS) > 1:
+            loss = _average_over_data(unet, loss, mesh)
         opt.step()
-        return loss.detach()
+        return loss
 
     return init_fn, step_fn
+
+
+def _average_over_data(unet: nn.Module, loss: torch.Tensor, mesh) -> torch.Tensor:
+    """Every gradient of ``unet`` and ``loss`` averaged over the mesh's data axis in
+    one all-reduce of their concatenation (one per dtype). Returns the mean loss."""
+    group, n = mesh.get_group(DATA_AXIS), axis_size(mesh, DATA_AXIS)
+    grads = [p.grad for p in unet.parameters() if p.grad is not None]
+    by_dtype = {}
+    for g in grads + [loss]:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for tensors in by_dtype.values():
+        summed = comm.all_reduce_sum(torch.cat([t.reshape(-1) for t in tensors]), group)
+        for t, part in zip(tensors, summed.split([t.numel() for t in tensors])):
+            t.copy_(part.view_as(t) / n)
+    return loss
 
 
 def sample_batch(batch_size: int, latent_hw: int = 8, ctx_len: int = 77,

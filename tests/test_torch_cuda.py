@@ -3,9 +3,10 @@ VAE encoder and ControlNet that run them on the img2img and ControlNet paths,
 against the same modules on the CPU; the step loop at batch 2 in bf16 on the
 card against fp32 on the CPU; a merged batch of 2 against batch 1 in bf16; the
 kernels' refusal of a gradient they cannot give, small-width training steps
-on the card against the CPU, and the int8 path's products (``torch._int_mm``) and
+on the card against the CPU, the int8 path's products (``torch._int_mm``) and
 im2col convolution on the card against the CPU, with an int8 UNet that launches
-K1.
+K1; K1 at the shapes Megatron TP gives it, and ring attention on two ``gloo``
+ranks sharing the card against the plain version.
 
 Every test here needs an NVIDIA card and ``nvcc`` (Hopper, ``sm_90a``) and skips
 where torch sees no CUDA device. The JAX package is not imported, so the file also
@@ -238,6 +239,55 @@ def test_kernel_matches_plain_at_the_batch_shapes(cuda, case):
     ok, _, line = chip_smoke.check_case(case)
     assert wrapper.launches == before + 1
     assert ok, line
+
+
+@pytest.mark.parametrize("case", chip_smoke.TP_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_kernel_matches_plain_at_the_tp_shapes(cuda, case):
+    """The shapes of the UNet's self-attention under TP, 8 / model heads a rank,
+    as phase 3 of the smoke run checks them."""
+    wrapper = getattr(tfa, f"{case[0]}_attention")
+    before = wrapper.launches
+    ok, _, line = chip_smoke.check_case(case)
+    assert wrapper.launches == before + 1
+    assert ok, line
+
+
+def _ring_rank(b, s, h, d):
+    """One of two gloo ranks on the card: ring attention with the tokens split over
+    the data axis, fp32 and bf16, against the plain version of the whole inputs on
+    the card. Returns {dtype: (max error over the limit, K1/K2 launches)}."""
+    from minsdtf_tpu_torch.ops.ring_attention import ring_multi_head_attention
+    from minsdtf_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(2, 1)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v = (torch.randn(b, s, h * d, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        launches = tfa.onepass_attention.launches + tfa.online_attention.launches
+        got = ring_multi_head_attention(q, k, v, h, mesh).float()
+        launches = tfa.onepass_attention.launches + tfa.online_attention.launches - launches
+        want = tattn.plain_attention(*(t.unflatten(-1, (h, d)) for t in (q, k, v)),
+                                     d ** -0.5).reshape(b, s, h * d).float()
+        rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else TOL[dtype]
+        out[str(dtype)] = (float(((got - want).abs() / (atol + rtol * want.abs())).max()),
+                           launches)
+    return out
+
+
+def test_ring_on_two_gloo_ranks_sharing_the_card(cuda):
+    """Ring attention at the 512px UNet level-0 shape (2, 4096, 8, 40) on two gloo
+    ranks on one card (NCCL refuses two ranks on one GPU): the K/V shifts go
+    through pinned host memory, and each rank's output is within the plain
+    version's limits (fp32 2e-4; bf16 the kernels' TOL), with no kernel launch."""
+    from minsdtf_tpu_torch.parallel.mesh import run_ranks
+
+    for rank in run_ranks(_ring_rank, 2, args=(2, 4096, 8, 40), device="cuda", timeout_s=300):
+        for dtype, (ratio, launches) in rank.items():
+            assert ratio <= 1.0, (dtype, ratio)
+            assert launches == 0, dtype
 
 
 @pytest.mark.parametrize("case", chip_smoke.SERVE_CASES, ids=lambda c: "-".join(map(str, c)))
