@@ -67,12 +67,21 @@ at full width, 512x512, 25 steps, CFG 7.5, bf16, on phase 5's seeds. The card's
 machine has one GPU, and NCCL takes one GPU per rank, so only 12a runs NCCL (world
 size 1, mesh (1, 1), in this process: ``text_to_image`` with ``mesh=``, and a small
 fp32 run against the CPU); the others spawn ``gloo`` ranks that share the card,
-each rank's launches counted on its own: 12c DP, mesh (2, 1), batch 2, each rank's
-row bit for bit against one device's batch-1 call on the same modules; 12d SP,
-mesh (1, 2), 1024x1024, the ring carrying the 125 self-attentions at 16384 tokens
-and the VAE's (K1 250, K2 0), then a small fp32 SP run (``MINSDTF_SP_MIN_SEQ=1024``)
-against the CPU; 12b TP, mesh (1, 2), K1 at (2,4096,4,40) and (2,1024,4,80) and K2
-path B at (1,4096,1,512) on each rank (250/1), then a small fp32 TP run against
+each rank's launches counted on its own: 12c DP, mesh (2, 1), batch 2, at
+``MESH_CUT_STEPS`` = 10 steps (so are 12b's), each rank's row bit for bit
+against one device's batch-1 call on the same modules, then a batch
+of 3, which the data axis does not divide: each rank runs it whole, gathers
+nothing and must equal one device's batch of 3 bit for bit; 12d spatial SP, mesh
+(1, 2), 1024x1024: the UNet's level 0 and every decoder level H-sharded, the
+sharded ring carrying the 125 self-attentions at 16384 tokens and the VAE's (K1
+250, K2 0), every collective counted by kind with its bytes and host seconds,
+only the level-0 downsampler's, ``conv_out``'s and the decoder's output rows
+gathered, each rank's peak memory beside phase 5b's; 12g small fp32 spatial SP
+runs at 128x128 (``MINSDTF_SP_MIN_SEQ=256``: the UNet's level 0 and every VAE
+level shard) of txt2img and img2img (the encoder sharded) against the CPU; 12b
+TP, mesh (1, 2), K1 at
+(2,4096,4,40) and (2,1024,4,80) and K2 path B at (1,4096,1,512) on each rank
+(100/1), against one device's 10-step image, then a small fp32 TP run against
 the CPU; 12e two steps of the small UNet's train step on mesh (2, 2), four ranks,
 against one CPU process (10b's tolerances); 12f the dry run on four ranks. The
 times of group 12 are this one card's: the ranks share it and reach each other
@@ -91,6 +100,7 @@ Longer logs go to ``chiprun_out/chip_smoke/``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import gzip
@@ -2083,6 +2093,10 @@ def phase_t999(bpe: str) -> bool:
 
 MESH_SMALL = dict(widths=(320, 64, 128, 128), temb_dim=128)
 MESH_TRAIN_BATCH = 4  # 12e: two rows a data rank, at 32x32
+# 12b's and 12c's depth, cut from phase 5's 25 steps so that the whole script
+# stays within the time it took before 12d became spatial SP and 12c and 12g grew
+MESH_CUT_STEPS = 10
+MESH_SMALL_SP = dict(size=128, min_seq=256)  # 12g: the UNet's level 0 and every VAE level shard
 
 
 def mesh_rank_setup() -> int:
@@ -2093,21 +2107,30 @@ def mesh_rank_setup() -> int:
     return torch.distributed.get_rank()
 
 
-def small_mesh_run(bpe: str, device: str, mesh=None, **kw):
-    """txt2img at 256x256, 3 steps, seed 7, CFG 7.5, fp32, on the small unfused
-    modules (seeds 0, 2, 1; made on the CPU and moved): ``(image, latent)``."""
+def small_mesh_run(bpe: str, device: str, mesh=None, img2img: bool = False, size: int = 256,
+                   **kw):
+    """txt2img (or, with ``img2img``, image_to_image of ``synthetic_inputs(size)``'s
+    reference at strength 0.8) at ``size`` x ``size``, 3 steps, seed 7, CFG 7.5,
+    fp32, on the small unfused modules (seeds 0, 2, 1, 4; made on the CPU and
+    moved): ``(image, latent)``."""
     from minsdtf_tpu_torch import StableDiffusion
     from minsdtf_tpu_torch.models import clip as clip_lib
     from minsdtf_tpu_torch.models import unet as unet_lib
     from minsdtf_tpu_torch.models import vae as vae_lib
 
-    pipe = StableDiffusion(256, 256, bpe_path=bpe, compute_dtype=torch.float32, device=device,
+    pipe = StableDiffusion(size, size, bpe_path=bpe, compute_dtype=torch.float32, device=device,
                            mesh=mesh, **kw)
     pipe._unet = unet_lib.init("cpu", seed=0, **MESH_SMALL).to(device).eval()
     pipe._decoder = vae_lib.init_decoder("cpu", seed=2, dec_widths=(192, 64, 32, 32)).to(
         device).eval()
     pipe._text_model = clip_lib.init("cpu", seed=1).to(device).eval()
-    return pipe.text_to_image("hello world", num_steps=3, seed=7, return_latent=True)
+    common = dict(num_steps=3, seed=7, return_latent=True)
+    if not img2img:
+        return pipe.text_to_image("hello world", **common)
+    pipe._encoder = vae_lib.init_encoder("cpu", seed=4, enc_widths=(32, 32, 64, 64)).to(
+        device).eval()
+    return pipe.image_to_image("hello world", reference_image=synthetic_inputs(size)[0],
+                               **common)
 
 
 def small_against(got, want) -> tuple:
@@ -2154,12 +2177,33 @@ def recording_kernel_shapes():
         attention.fa = fa
 
 
+@contextlib.contextmanager
+def recording_gathers():
+    """In the body, ``{(local shape, dim): count}`` of the tensors that
+    ``comm.all_gather`` gathers; the call itself is unchanged."""
+    from minsdtf_tpu_torch.parallel import comm
+
+    gathers, gather = {}, comm.all_gather
+
+    def recorded(t, group, dim=0):
+        key = (tuple(t.shape), dim)
+        gathers[key] = gathers.get(key, 0) + 1
+        return gather(t, group, dim)
+
+    comm.all_gather = recorded
+    try:
+        yield gathers
+    finally:
+        comm.all_gather = gather
+
+
 def mesh_timed(generate, images: int, warm: bool = True) -> dict:
     """``generate()`` once cold and, with ``warm``, once more timed; the timed call
-    returns its latent and runs with the launch, ring and collective counts zeroed
-    just before it and read just after, and the kernels' shapes recorded."""
+    returns its latent and runs with the launch, ring, spatial and collective
+    counts and the peak memory zeroed just before it and read just after, the
+    kernels' shapes and the gathered tensors recorded."""
     from minsdtf_tpu_torch.ops import ring_attention
-    from minsdtf_tpu_torch.parallel import comm
+    from minsdtf_tpu_torch.parallel import comm, spatial
 
     cold_s = None
     if warm:
@@ -2169,59 +2213,89 @@ def mesh_timed(generate, images: int, warm: bool = True) -> dict:
         cold_s = time.perf_counter() - t0
     zero_launches()
     ring_attention.ring_multi_head_attention.calls = 0
+    ring_attention.ring_attention_sharded.calls = 0
     comm.reset_stats()
+    spatial.reset_calls()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with recording_kernel_shapes() as shapes:
+    with recording_kernel_shapes() as shapes, recording_gathers() as gathers:
         image, latent = generate(return_latent=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return dict(cold_s=cold_s, s_per_img=wall / images, image=image, latent=latent,
-                launches=read_launches(), ring_calls=ring_attention.ring_multi_head_attention.calls,
-                comm=copy.deepcopy(comm.stats), shapes={k: sorted(v) for k, v in shapes.items()})
+                launches=read_launches(),
+                ring_calls=ring_attention.ring_multi_head_attention.calls,
+                ring_sharded=ring_attention.ring_attention_sharded.calls,
+                spatial=dict(spatial.calls), gathers=gathers, comm=copy.deepcopy(comm.stats),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                shapes={k: sorted(v) for k, v in shapes.items()})
 
 
 def mesh_rank_pair(bpe: str) -> dict:
     """One of the two gloo ranks on the card: 12c (DP, mesh (2, 1), batch 2, and
-    this rank's row at batch 1 on one device), 12d (SP, mesh (1, 2), 1024x1024,
-    and the small fp32 SP run with ``MINSDTF_SP_MIN_SEQ=1024``) and 12b (TP, mesh
-    (1, 2), and the small fp32 TP run), on one set of full-width modules (seeds as
-    phase 5, unfused): whole for 12c and 12d, then sharded for 12b."""
+    this rank's row at batch 1 on one device; then a batch of 3, which the data
+    axis does not divide, against one device's batch of 3), 12d (spatial SP, mesh
+    (1, 2), 1024x1024), 12g (small fp32 spatial SP, txt2img and img2img, at
+    ``MESH_SMALL_SP``) and 12b (TP, mesh (1, 2), and the small fp32 TP run), on
+    one set of full-width modules (seeds as phase 5, unfused): whole for 12c and
+    12d, then sharded for 12b. 12c and 12b run ``MESH_CUT_STEPS`` steps."""
     from minsdtf_tpu_torch import StableDiffusion
     from minsdtf_tpu_torch import rng as rng_lib
     from minsdtf_tpu_torch.ops import ring_attention
+    from minsdtf_tpu_torch.parallel import comm
     from minsdtf_tpu_torch.parallel.mesh import make_mesh
 
     rank = mesh_rank_setup()
     out = {}
     settings = dict(num_steps=25, unconditional_guidance_scale=7.5, seed=1234)
+    cut = dict(settings, num_steps=MESH_CUT_STEPS)
     dp = StableDiffusion(512, 512, bpe_path=bpe, mesh=make_mesh(2, 1))
-    out["dp"] = mesh_timed(lambda **kw: dp.text_to_image(PROMPT, batch_size=2, **settings, **kw),
+    out["dp"] = mesh_timed(lambda **kw: dp.text_to_image(PROMPT, batch_size=2, **cut, **kw),
                            images=2)
     single = StableDiffusion(512, 512, bpe_path=bpe)
     for name in ("_unet", "_decoder", "_text_model", "_tokenizer", "_uncond"):
         setattr(single, name, getattr(dp, name))
     noise = rng_lib.stateless_normal((2, 64, 64, 4), settings["seed"])[rank]
     out["dp_single"] = single.generate_image(
-        dp._encode_text_dev(PROMPT), batch_size=1, diffusion_noise=noise, num_steps=25,
+        dp._encode_text_dev(PROMPT), batch_size=1, diffusion_noise=noise, num_steps=MESH_CUT_STEPS,
         unconditional_guidance_scale=7.5, guidance_rescale=0.7, return_latent=True)
+    # a batch of 3 on data = 2: each rank runs the whole batch and gathers nothing
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    out["dp3"] = dp.text_to_image(PROMPT, batch_size=3, **cut, return_latent=True)
+    out["dp3_s"] = time.perf_counter() - t0
+    out["dp3_gathers"] = comm.stats["all_gather"]["calls"]
+    out["dp3_single"] = single.text_to_image(PROMPT, batch_size=3, **cut,
+                                             return_latent=True)
 
     sp = StableDiffusion(1024, 1024, bpe_path=bpe, mesh=make_mesh(1, 2), sequence_parallel=True)
     for name in ("_unet", "_decoder", "_text_model", "_tokenizer"):
         setattr(sp, name, getattr(dp, name))
+        getattr(sp, name.lstrip("_"))  # placed before the timed call
     out["sp"] = mesh_timed(lambda **kw: sp.text_to_image(PROMPT, **settings, **kw), images=1,
                            warm=False)
-    os.environ["MINSDTF_SP_MIN_SEQ"] = "1024"  # read at construction
+    os.environ["MINSDTF_SP_MIN_SEQ"] = str(MESH_SMALL_SP["min_seq"])  # read at construction
     try:
-        before = ring_attention.ring_multi_head_attention.calls
-        out["sp_small"] = small_mesh_run(bpe, "cuda", make_mesh(1, 2), sequence_parallel=True)
-        out["sp_small_ring_calls"] = ring_attention.ring_multi_head_attention.calls - before
+        before = ring_attention.ring_attention_sharded.calls
+        comm.reset_stats()
+        for key, img2img in (("sp_small", False), ("sp_small_i2i", True)):
+            out[key] = small_mesh_run(bpe, "cuda", make_mesh(1, 2), img2img=img2img,
+                                      size=MESH_SMALL_SP["size"], sequence_parallel=True)
+        out["sp_small_ring_calls"] = ring_attention.ring_attention_sharded.calls - before
+        out["sp_small_halos"] = comm.stats["halo"]["calls"]
     finally:
         del os.environ["MINSDTF_SP_MIN_SEQ"]
 
+    out["tp_single"] = single.text_to_image(PROMPT, **cut)  # before TP shards the modules
     tp = StableDiffusion(512, 512, bpe_path=bpe, mesh=make_mesh(1, 2))
-    for name in ("_unet", "_decoder", "_text_model", "_tokenizer"):
-        setattr(tp, name, getattr(dp, name))
-    out["tp"] = mesh_timed(lambda **kw: tp.text_to_image(PROMPT, **settings, **kw), images=1)
+    with torch.inference_mode():  # the modules hold inference tensors by now
+        for name in ("_unet", "_decoder", "_text_model", "_tokenizer"):
+            setattr(tp, name, getattr(dp, name))
+            getattr(tp, name.lstrip("_"))  # sharded before the timed call
+    # one call: a first TP call takes as long as a second (3.402 and 3.436 s on an
+    # H100 80GB HBM3 at 700 W)
+    out["tp"] = mesh_timed(lambda **kw: tp.text_to_image(PROMPT, **cut, **kw), images=1,
+                           warm=False)
     out["tp_heads"] = tp.unet.down_blocks[0].attentions[0].transformer_blocks[0].attn1.num_heads
     out["tp_small"] = small_mesh_run(bpe, "cuda", make_mesh(1, 2))
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -2326,7 +2400,32 @@ def image_against(image: np.ndarray, want: np.ndarray) -> str:
             f"{psnr(image, want):.3f} dB")
 
 
-def phase_mesh(card: str, bpe: str, image_512: np.ndarray, image_1024: np.ndarray):
+# 12d's gathers a rank, (local shape, dim): count. Per UNet call (CFG pair) the
+# downsampler's output rows out of level 0 (128x128 -> 64x64) and conv_out's rows;
+# the decoder's output rows once. Nothing else is gathered: no ring output.
+SP_GATHERS = {((2, 320, 32, 64), 2): 25, ((2, 4, 64, 128), 2): 25, ((1, 3, 512, 1024), 2): 1}
+
+
+def while_ranks_run(fn, world: int, args, cpu_work, threads: int = 4):
+    """``run_ranks(fn, world, args)`` on the card, deadline 300 s, in a thread,
+    while ``cpu_work()`` runs here on at most ``threads`` torch threads (the
+    ranks' host work needs the other cores). Returns both results."""
+    from minsdtf_tpu_torch.parallel import mesh as mesh_lib
+
+    before = torch.get_num_threads()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        future = pool.submit(mesh_lib.run_ranks, fn, world, args, device="cuda",
+                             timeout_s=300)
+        torch.set_num_threads(min(threads, before))
+        try:
+            done = cpu_work()
+        finally:
+            torch.set_num_threads(before)
+        return future.result(), done
+
+
+def phase_mesh(card: str, bpe: str, image_512: np.ndarray, image_1024: np.ndarray,
+               peak_gb_1024: float):
     """Phase group 12. Returns the numbers for ``result.json`` and each run's
     launches, or None if a check failed. The times are this one card's: gloo ranks
     share it and reach each other through host memory, which times the port's
@@ -2337,7 +2436,6 @@ def phase_mesh(card: str, bpe: str, image_512: np.ndarray, image_1024: np.ndarra
     from minsdtf_tpu_torch.parallel import dryrun, mesh as mesh_lib
 
     out, launches, all_ok = {}, {}, True
-    cpu_small = small_mesh_run(bpe, "cpu")
 
     # 12a: NCCL at world size 1 in this process
     with tempfile.TemporaryDirectory(prefix="chip-smoke-nccl-") as tmp:
@@ -2345,10 +2443,21 @@ def phase_mesh(card: str, bpe: str, image_512: np.ndarray, image_1024: np.ndarra
         try:
             mesh = mesh_lib.make_mesh(1, 1)
             a = mesh_timed(txt2img(StableDiffusion(512, 512, bpe_path=bpe, mesh=mesh)), 1)
-            a_small = small_against(small_mesh_run(bpe, "cuda", mesh), cpu_small)
+            a_small_run = small_mesh_run(bpe, "cuda", mesh)
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
+
+    # 12b, 12c, 12d, 12g: two gloo ranks on the card, the CPU references meanwhile
+    def cpu_references():
+        return small_mesh_run(bpe, "cpu"), {
+            key: small_mesh_run(bpe, "cpu", img2img=img2img, size=MESH_SMALL_SP["size"])
+            for key, img2img in (("sp_small", False), ("sp_small_i2i", True))}
+
+    t0 = time.perf_counter()
+    pair, (cpu_small, cpu_sp_small) = while_ranks_run(mesh_rank_pair, 2, (bpe,), cpu_references)
+    pair_s = time.perf_counter() - t0
+    a_small = small_against(a_small_run, cpu_small)
     checks = {"K1/K2 250/1": a["launches"] == {"onepass": 250, "online": 1},
               "image (1, 512, 512, 3)": a["image"].shape == (1, 512, 512, 3),
               "small fp32 mesh (1, 1) on the card against the CPU": a_small[2]}
@@ -2362,27 +2471,39 @@ def phase_mesh(card: str, bpe: str, image_512: np.ndarray, image_1024: np.ndarra
     out["12a"] = dict(s_per_img=a["s_per_img"], launches=a["launches"], comm=a["comm"],
                       small_latent_err=a_small[0], psnr_vs_phase5=psnr(a["image"], image_512))
 
-    # 12b, 12c, 12d: two gloo ranks on the card
-    t0 = time.perf_counter()
-    pair = mesh_lib.run_ranks(mesh_rank_pair, 2, args=(bpe,), device="cuda", timeout_s=900)
-    pair_s = time.perf_counter() - t0
     for r, res in enumerate(pair):
         dp, sp, tp = res["dp"], res["sp"], res["tp"]
         img1, lat1 = res["dp_single"]
         equal = bool(np.array_equal(dp["image"][r:r + 1], img1)) and bool(
             np.array_equal(dp["latent"][r:r + 1], lat1))
-        tp_small, sp_small = small_against(res["tp_small"], cpu_small), small_against(
-            res["sp_small"], cpu_small)
+        tp_small = small_against(res["tp_small"], cpu_small)
+        sp_small, sp_i2i = (small_against(res[key], cpu_sp_small[key])
+                            for key in ("sp_small", "sp_small_i2i"))
+        img3, lat3 = res["dp3"]
+        equal3 = bool(np.array_equal(img3, res["dp3_single"][0])) and bool(
+            np.array_equal(lat3, res["dp3_single"][1]))
         checks = {
-            "12c K1/K2 250/1": dp["launches"] == {"onepass": 250, "online": 1},
+            f"12c K1/K2 {10 * MESH_CUT_STEPS}/1":
+                dp["launches"] == {"onepass": 10 * MESH_CUT_STEPS, "online": 1},
             "12c image (2, 512, 512, 3), both rows on each rank": dp["image"].shape == (2, 512, 512, 3)
             and np.array_equal(dp["image"], pair[0]["dp"]["image"]),
             "12c this rank's row equals one device's batch-1 call, bit for bit": equal,
+            "12c batch 3 on data = 2: the whole batch, nothing gathered, equal to one "
+            "device's batch of 3 bit for bit": img3.shape == (3, 512, 512, 3)
+            and res["dp3_gathers"] == 0 and equal3,
             "12d K1 250, K2 0": sp["launches"] == {"onepass": 250, "online": 0},
-            "12d ring 126 (125 UNet level 0, 1 VAE)": sp["ring_calls"] == 126,
+            "12d sharded ring 126 (125 UNet level 0, 1 VAE), no whole-input ring":
+                sp["ring_sharded"] == 126 and sp["ring_calls"] == 0,
+            "12d gathers: the level-0 downsampler's and conv_out's rows 25 each, the "
+            "decoder's output once": sp["gathers"] == SP_GATHERS,
+            "12d halo exchanges and GroupNorm sums": sp["comm"]["halo"]["calls"] > 0
+            and sp["comm"]["all_reduce"]["calls"] > 0,
             "12d image (1, 1024, 1024, 3)": sp["image"].shape == (1, 1024, 1024, 3),
-            "12d small fp32 SP against the CPU": sp_small[2] and res["sp_small_ring_calls"] > 0,
-            "12b K1/K2 250/1": tp["launches"] == {"onepass": 250, "online": 1},
+            "12g small fp32 spatial SP txt2img against the CPU": sp_small[2]
+            and res["sp_small_ring_calls"] > 0 and res["sp_small_halos"] > 0,
+            "12g small fp32 spatial SP img2img (encoder sharded) against the CPU": sp_i2i[2],
+            f"12b K1/K2 {10 * MESH_CUT_STEPS}/1":
+                tp["launches"] == {"onepass": 10 * MESH_CUT_STEPS, "online": 1},
             "12b K1 at (2,4096,4,40) and (2,1024,4,80), K2 at (1,4096,1,512)":
                 set(tp["shapes"]["onepass"]) == {(2, 4096, 4, 40), (2, 1024, 4, 80)}
                 and tp["shapes"]["online"] == [(1, 4096, 1, 512)],
@@ -2390,39 +2511,53 @@ def phase_mesh(card: str, bpe: str, image_512: np.ndarray, image_1024: np.ndarra
             "12b small fp32 TP against the CPU": tp_small[2],
         }
         all_ok &= all(checks.values())
-        log(f"phase 12c DP rank {r}, gloo, mesh (2, 1), batch 2: {dp['s_per_img']:.4f} s/img "
+        log(f"phase 12c DP rank {r}, gloo, mesh (2, 1), batch 2, {MESH_CUT_STEPS} steps: "
+            f"{dp['s_per_img']:.4f} s/img "
             f"(cold call {dp['cold_s']:.3f} s), launches {dp['launches']}, collectives "
             f"{comm_line(dp['comm'])}; row {r} against one device's batch-1 call: "
             f"{image_against(dp['image'][r:r + 1], img1)}, latent max |diff| "
-            f"{float(np.abs(dp['latent'][r:r + 1] - lat1).max()):.3e}")
-        log(f"phase 12d SP rank {r}, gloo, mesh (1, 2), 1024x1024: {sp['s_per_img']:.4f} s/img "
-            f"(one call, the first at 1024px), launches {sp['launches']}, ring calls "
-            f"{sp['ring_calls']}, K1 shapes {sp['shapes']['onepass']}, collectives "
-            f"{comm_line(sp['comm'])}; against phase 5b's image: "
-            f"{image_against(sp['image'], image_1024)}; small fp32 SP (min_seq 1024, "
-            f"{res['sp_small_ring_calls']} ring calls) against the CPU: latent "
-            f"{sp_small[0]:.3e}, image {sp_small[1]}")
-        log(f"phase 12b TP rank {r}, gloo, mesh (1, 2): {tp['s_per_img']:.4f} s/img (cold "
-            f"{tp['cold_s']:.3f} s), launches {tp['launches']}, shapes {tp['shapes']}, "
-            f"collectives {comm_line(tp['comm'])}; against phase 5's image: "
-            f"{image_against(tp['image'], image_512)}; small fp32 TP against the CPU: latent "
+            f"{float(np.abs(dp['latent'][r:r + 1] - lat1).max()):.3e}; batch 3 on data = 2 "
+            f"in {res['dp3_s']:.3f} s, {res['dp3_gathers']} gathers, against one device's "
+            f"batch of 3: {image_against(img3, res['dp3_single'][0])}, latent max |diff| "
+            f"{float(np.abs(lat3 - res['dp3_single'][1]).max()):.3e}")
+        log(f"phase 12d spatial SP rank {r}, gloo, mesh (1, 2), 1024x1024: "
+            f"{sp['s_per_img']:.4f} s/img (one call, the first at 1024px), launches "
+            f"{sp['launches']}, sharded ring calls {sp['ring_sharded']}, whole-input ring calls "
+            f"{sp['ring_calls']}, K1 shapes {sp['shapes']['onepass']}, spatial calls "
+            f"{sp['spatial']}, gathers {sp['gathers']}, collectives {comm_line(sp['comm'])}; "
+            f"peak memory {sp['peak_gb']:.3f} GB (phase 5b, one device: {peak_gb_1024:.3f} GB); "
+            f"against phase 5b's image: {image_against(sp['image'], image_1024)}")
+        log(f"phase 12g small fp32 spatial SP rank {r}, gloo, mesh (1, 2), min_seq "
+            f"{MESH_SMALL_SP['min_seq']}, {MESH_SMALL_SP['size']}px "
+            f"({res['sp_small_ring_calls']} sharded ring calls, "
+            f"{res['sp_small_halos']} halo exchanges), card against the CPU: txt2img latent "
+            f"{sp_small[0]:.3e}, image {sp_small[1]}; img2img latent {sp_i2i[0]:.3e}, image "
+            f"{sp_i2i[1]} (tol 1e-3, 1)")
+        log(f"phase 12b TP rank {r}, gloo, mesh (1, 2), {MESH_CUT_STEPS} steps: "
+            f"{tp['s_per_img']:.4f} s/img (one call), launches {tp['launches']}, shapes "
+            f"{tp['shapes']}, collectives {comm_line(tp['comm'])}; against one device's "
+            f"{MESH_CUT_STEPS}-step image: {image_against(tp['image'], res['tp_single'])}; "
+            f"small fp32 TP against the CPU: latent "
             f"{tp_small[0]:.3e}, image {tp_small[1]}; peak memory {res['peak_gb']:.3f} GB; "
             f"checks {checks} | {card}")
         for key, run in (("dp", dp), ("sp", sp), ("tp", tp)):
             launches[f"{key}_rank{r}"] = run["launches"]
         out[f"rank{r}"] = {
             key: dict(s_per_img=run["s_per_img"], cold_s=run["cold_s"], launches=run["launches"],
-                      ring_calls=run["ring_calls"], comm=run["comm"])
+                      ring_calls=run["ring_calls"], ring_sharded=run["ring_sharded"],
+                      spatial=run["spatial"], comm=run["comm"], peak_gb=run["peak_gb"],
+                      gathers={str(k): v for k, v in run["gathers"].items()})
             for key, run in (("12c_dp", dp), ("12d_sp", sp), ("12b_tp", tp))}
         out[f"rank{r}"].update(
-            psnr_12b_vs_phase5=psnr(tp["image"], image_512),
+            psnr_12b_vs_one_device=psnr(tp["image"], res["tp_single"]),
             psnr_12d_vs_phase5b=psnr(sp["image"], image_1024), dp_row_bit_equal=equal,
-            tp_small_latent_err=tp_small[0], sp_small_latent_err=sp_small[0])
-    log(f"phase 12b-12d: two ranks in {pair_s:.1f} s")
+            dp_batch3_bit_equal=equal3, dp_batch3_s=res["dp3_s"],
+            tp_small_latent_err=tp_small[0], sp_small_latent_err=sp_small[0],
+            sp_small_img2img_latent_err=sp_i2i[0], peak_gb_1024_one_device=peak_gb_1024)
+    log(f"phase 12b-12d, 12g: two ranks in {pair_s:.1f} s")
 
-    # 12e: the train step under DP x TP on four gloo ranks
-    cpu_train = train_reference_cpu()
-    train = mesh_lib.run_ranks(mesh_rank_train, 4, device="cuda", timeout_s=600)
+    # 12e: the train step under DP x TP on four gloo ranks, its CPU reference meanwhile
+    train, cpu_train = while_ranks_run(mesh_rank_train, 4, (), train_reference_cpu)
     numbers = compare_mesh_training(train, cpu_train)
     all_ok &= all(numbers["checks"].values())
     log(f"phase 12e train step, gloo, mesh (2, 2), widths {TRAIN_SMALL['widths']}, batch "
@@ -2436,8 +2571,8 @@ def phase_mesh(card: str, bpe: str, image_512: np.ndarray, image_1024: np.ndarra
 
     # 12f: the dry run on the card
     t0 = time.perf_counter()
-    lines = dryrun.dryrun(4, "cuda")
-    ok = lines[-1] == "dryrun_multichip OK" and len(lines) == 5
+    lines = dryrun.dryrun(4, "cuda", timeout_s=300)
+    ok = lines[-1] == "dryrun_multichip OK" and len(lines) == 6
     all_ok &= ok
     log(f"phase 12f dryrun --n 4 on the card in {time.perf_counter() - t0:.1f} s: {lines} "
         f"{'ok' if ok else 'FAIL'}")
@@ -2542,7 +2677,7 @@ def main() -> int:
             return 1
     mark("phases 11a-11f")
     with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
-        mesh = phase_mesh(card, synthetic_merges(tmp), image_512, image_1024)
+        mesh = phase_mesh(card, synthetic_merges(tmp), image_512, image_1024, peak_gb_1024)
     if mesh is None:
         return 1
     mesh_results, mesh_launches = mesh

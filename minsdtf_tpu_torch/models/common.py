@@ -6,7 +6,10 @@ diffusers-style dotted names (``down_blocks.0.resnets.0.conv1.weight``); the
 forwards call :mod:`minsdtf_tpu_torch.ops.basic` on those parameters. A conv or
 dense site that :mod:`minsdtf_tpu_torch.weights.quantize` made W8A8 is an
 :class:`Int8Site` in its place, and :func:`apply_conv` / :func:`apply_dense` run it
-through the int8 ops.
+through the int8 ops. Under spatial sequence parallelism a model passes each
+block whether its activations are H-sharded (:mod:`minsdtf_tpu_torch.parallel.spatial`),
+and :func:`conv3`, :func:`norm_act`, :func:`downsample` and :func:`upsample` pick
+the sharded operation or the whole one.
 """
 
 from __future__ import annotations
@@ -16,7 +19,11 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from minsdtf_tpu_torch.ops.basic import conv2d, dense, int8_conv2d, int8_dense
+from minsdtf_tpu_torch.ops.basic import (
+    Padding, conv2d, dense, group_norm, group_norm_silu, int8_conv2d, int8_dense,
+    upsample2x_conv3x3,
+)
+from minsdtf_tpu_torch.parallel import spatial
 from minsdtf_tpu_torch.parallel.sharding import ParallelLinear
 
 _WEIGHT_MODULES = (nn.Conv2d, nn.Linear, nn.Embedding)
@@ -109,3 +116,42 @@ def apply_dense(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     if isinstance(m, ParallelLinear):
         return m(x)
     return dense(x, m.weight, m.bias)
+
+
+def conv3(m: nn.Module, x: torch.Tensor, sharded: bool, whole_input: bool = False) -> torch.Tensor:
+    """A 3x3 stride-1 conv of ``m``: where its level is H-sharded, this rank's
+    output rows through :func:`parallel.spatial.halo_conv2d` (``whole_input``:
+    read from a whole ``x`` with no transfer), else :func:`apply_conv`."""
+    if sharded:
+        return spatial.halo_conv2d(m, x, whole_input=whole_input)
+    return apply_conv(m, x, padding=1)
+
+
+def norm_act(m: nn.Module, x: torch.Tensor, sharded: bool, silu: bool = True) -> torch.Tensor:
+    """GroupNorm (+ SiLU) with ``m``'s scale and bias, over the whole image's
+    statistics when ``x`` is H-sharded."""
+    if sharded:
+        return spatial.group_norm(x, m.weight, m.bias, silu=silu)
+    return (group_norm_silu if silu else group_norm)(x, m.weight, m.bias)
+
+
+def downsample(m: nn.Module, x: torch.Tensor, sharded_in: bool, sharded_out: bool,
+               padding: Padding = 1) -> torch.Tensor:
+    """The stride-2 conv of ``m``. From an H-sharded level each rank computes its
+    output rows; they are gathered where the level below is not sharded, which
+    moves a quarter of the bytes of gathering the input. Local rows of an odd
+    count do not split at stride 2: the input is gathered first."""
+    if not sharded_in:
+        return apply_conv(m, x, stride=2, padding=padding)
+    if x.shape[2] % 2:  # only where the level below is whole: its h/n would be fractional
+        return apply_conv(m, spatial.gather_rows(x), stride=2, padding=padding)
+    y = spatial.halo_conv2d(m, x, 2, padding)
+    return y if sharded_out else spatial.gather_rows(y)
+
+
+def upsample(m: nn.Module, x: torch.Tensor, sharded_in: bool, sharded_out: bool) -> torch.Tensor:
+    """Nearest-2x and the 3x3 conv of ``m``; into an H-sharded level, this rank's
+    output rows only (a sharded level's double is sharded too)."""
+    if sharded_out:
+        return spatial.upsample2x_conv3x3(m, x, whole_input=not sharded_in)
+    return upsample2x_conv3x3(x, m.weight, m.bias)

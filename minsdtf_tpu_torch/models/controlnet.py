@@ -10,6 +10,12 @@
     each go through a 1x1 zero conv, giving the 13 residuals that
     ``UNet.forward(controls=...)`` adds.
 
+Under spatial SP the control branch shares the UNet's H-sharded levels
+(:func:`models.unet.run_down_and_mid`), so its residuals at a sharded level are
+this rank's rows, which the UNet adds shard for shard. The HintNet runs whole,
+as the JAX package's ``hint_net`` carries no anchor; its output is cut to this
+rank's rows at the add.
+
 ``state_dict`` keys are the diffusers names: the UNet's (``conv_in``,
 ``time_embedding.*``, ``down_blocks.*``, ``mid_block.*``), the zero convs
 ``controlnet_down_blocks.{0..11}`` and ``controlnet_mid_block``, and the hint
@@ -24,12 +30,13 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-from minsdtf_tpu_torch.models.common import apply_conv, build, param_shapes
+from minsdtf_tpu_torch.models.common import apply_conv, build, conv3, param_shapes
 from minsdtf_tpu_torch.models.unet import (
     BLOCK_WIDTHS, CONTEXT_DIM, down_and_mid_blocks, embed_time, run_down_and_mid,
     time_embedding_module,
 )
 from minsdtf_tpu_torch.ops.basic import silu
+from minsdtf_tpu_torch.parallel import spatial
 
 HINT_WIDTHS = (16, 16, 32, 32, 96, 96, 256, 320)
 HINT_STRIDES = (1, 1, 2, 1, 2, 1, 2, 1)
@@ -81,9 +88,11 @@ class ControlNet(nn.Module):
         """(B, h, w, 4), (B, 320), (B, S, 768), the (B, w0, h, w) HintNet output ->
         the 13 NCHW residuals (12 skips + the mid block)."""
         temb = embed_time(self.time_embedding, t_emb)
-        x = apply_conv(self.conv_in, latent.permute(0, 3, 1, 2), padding=1)
+        sharded = spatial.plan(latent.shape[1], latent.shape[2], 4)
+        x = conv3(self.conv_in, latent.permute(0, 3, 1, 2), sharded[0], whole_input=True)
+        hint = spatial.local_rows(hint) if sharded[0] else hint
         x, skips = run_down_and_mid(self.down_blocks, self.mid_block, x + hint.to(x.dtype),
-                                    temb, context)
+                                    temb, context, sharded)
         outs = [apply_conv(conv, s) for conv, s in zip(self.controlnet_down_blocks, skips)]
         return outs + [apply_conv(self.controlnet_mid_block, x)]
 

@@ -13,6 +13,16 @@ path and mid block are built and run by functions that
 :mod:`minsdtf_tpu_torch.models.controlnet` shares.
 ``state_dict`` keys are the JAX package's flat module names plus ``.weight`` /
 ``.bias`` (``down_blocks.0.resnets.0.conv1.weight``).
+
+Under :func:`ops.attention.sequence_parallel_scope` the forward keeps every level
+that :func:`parallel.spatial.plan` marks H-sharded so end to end, where the JAX
+package places ``constrain_spatial`` / ``constrain_tokens``
+(``minsdtf_tpu/models/unet.py:67``, ``:109-112``, ``:134-173``): the residual
+stream, the skips and the tokens stay this rank's rows, the 3x3 convs exchange
+halo rows, the GroupNorms sum over the model axis, self-attention runs the
+sharded ring and cross-attention the local queries against the whole context.
+The downsampler out of a sharded level gathers its output rows, and
+``conv_out``'s output is gathered, so the latent is whole on every rank.
 """
 
 from __future__ import annotations
@@ -22,11 +32,14 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from minsdtf_tpu_torch.models.common import apply_conv, apply_dense, build, norm, param_shapes
-from minsdtf_tpu_torch.ops.attention import multi_head_attention
-from minsdtf_tpu_torch.ops.basic import (
-    gelu_gate, group_norm, group_norm_silu, layer_norm, silu, upsample2x_conv3x3,
+from minsdtf_tpu_torch.models.common import (
+    apply_conv, apply_dense, build, conv3, downsample, norm, norm_act, param_shapes, upsample,
 )
+from minsdtf_tpu_torch.ops.attention import multi_head_attention
+from minsdtf_tpu_torch.ops.basic import gelu_gate, layer_norm, silu
+from minsdtf_tpu_torch.parallel import spatial
+
+WHOLE = (False,) * 4  # no level H-sharded
 
 NUM_HEADS = 8
 CONTEXT_DIM = 768
@@ -47,12 +60,10 @@ class ResBlock(nn.Module):
         if cin != cout:
             self.conv_shortcut = nn.Conv2d(cin, cout, 1)
 
-    def forward(self, x, temb):
-        h = group_norm_silu(x, self.norm1.weight, self.norm1.bias)
-        h = apply_conv(self.conv1, h, padding=1)
+    def forward(self, x, temb, sharded: bool = False):
+        h = conv3(self.conv1, norm_act(self.norm1, x, sharded), sharded)
         h = h + apply_dense(self.time_emb_proj, temb)[:, :, None, None]
-        h = group_norm_silu(h, self.norm2.weight, self.norm2.bias)
-        h = apply_conv(self.conv2, h, padding=1)
+        h = conv3(self.conv2, norm_act(self.norm2, h, sharded), sharded)
         if hasattr(self, "conv_shortcut"):
             x = apply_conv(self.conv_shortcut, x)
         return h + x
@@ -82,7 +93,8 @@ class CrossAttention(nn.Module):
             delattr(self, f"to_{n}")
         setattr(self, "to_qkv" if self_attention else "to_kv", fused)
 
-    def forward(self, x, context):
+    def forward(self, x, context, sharded: bool = False):
+        """``sharded``: a self-attention on this rank's tokens of an H-sharded level."""
         if hasattr(self, "to_qkv"):
             q, k, v = apply_dense(self.to_qkv, x).chunk(3, dim=-1)
         elif hasattr(self, "to_kv"):
@@ -92,7 +104,8 @@ class CrossAttention(nn.Module):
             q = apply_dense(self.to_q, x)
             k = apply_dense(self.to_k, context)
             v = apply_dense(self.to_v, context)
-        return apply_dense(self.to_out[0], multi_head_attention(q, k, v, num_heads=self.num_heads))
+        out = multi_head_attention(q, k, v, num_heads=self.num_heads, sharded=sharded)
+        return apply_dense(self.to_out[0], out)
 
 
 class GEGLUProj(nn.Module):
@@ -114,9 +127,9 @@ class TransformerBlock(nn.Module):
         self.ff = nn.Module()
         self.ff.net = nn.ModuleDict({"0": GEGLUProj(c), "2": nn.Linear(c * 4, c)})
 
-    def forward(self, x, context):
+    def forward(self, x, context, sharded: bool = False):
         h = layer_norm(x, self.norm1.weight, self.norm1.bias)
-        x = self.attn1(h, h) + x
+        x = self.attn1(h, h, sharded) + x
         x = self.attn2(layer_norm(x, self.norm2.weight, self.norm2.bias), context) + x
         h = layer_norm(x, self.norm3.weight, self.norm3.bias)
         h = gelu_gate(apply_dense(self.ff.net["0"].proj, h))
@@ -133,12 +146,11 @@ class SpatialTransformer(nn.Module):
         self.transformer_blocks = nn.ModuleList([TransformerBlock(c, context_dim)])
         self.proj_out = nn.Conv2d(c, c, 1)
 
-    def forward(self, x, context):
-        b, c, h, w = x.shape
-        z = group_norm(x, self.norm.weight, self.norm.bias)
-        z = apply_conv(self.proj_in, z)
+    def forward(self, x, context, sharded: bool = False):
+        b, c, h, w = x.shape  # this rank's rows when sharded: its tokens are a slice of HW
+        z = apply_conv(self.proj_in, norm_act(self.norm, x, sharded, silu=False))
         z = z.flatten(2).transpose(1, 2)  # (B, HW, C)
-        z = self.transformer_blocks[0](z, context)
+        z = self.transformer_blocks[0](z, context, sharded)
         z = z.transpose(1, 2).reshape(b, c, h, w)
         return apply_conv(self.proj_out, z) + x
 
@@ -193,22 +205,24 @@ def down_and_mid_blocks(widths, temb_dim: int, context_dim: int):
     return nn.ModuleList(down), mid
 
 
-def run_down_and_mid(down_blocks, mid_block, x, temb, context):
+def run_down_and_mid(down_blocks, mid_block, x, temb, context, sharded=WHOLE):
     """The down path and the mid block on ``x`` (NCHW, after ``conv_in``). Returns
     the mid block's output and the 12 skips: ``x`` itself, then every down
-    ResBlock / SpatialTransformer pair's and downsampler's output."""
+    ResBlock / SpatialTransformer pair's and downsampler's output. ``sharded[l]``
+    says whether level l (``x``'s resolution halved l times) is H-sharded; its
+    activations and skips are then this rank's rows."""
     skips = [x]
-    for level in down_blocks[:3]:
+    for i, level in enumerate(down_blocks[:3]):
         for res, attn in zip(level.resnets, level.attentions):
-            x = attn(res(x, temb), context)
+            x = attn(res(x, temb, sharded[i]), context, sharded[i])
             skips.append(x)
-        x = apply_conv(level.downsamplers[0].conv, x, stride=2, padding=1)
+        x = downsample(level.downsamplers[0].conv, x, sharded[i], sharded[i + 1])
         skips.append(x)
     for res in down_blocks[3].resnets:
-        x = res(x, temb)
+        x = res(x, temb, sharded[3])
         skips.append(x)
-    x = mid_block.resnets[1](mid_block.attentions[0](mid_block.resnets[0](x, temb), context), temb)
-    return x, skips
+    mid = mid_block.attentions[0](mid_block.resnets[0](x, temb, sharded[3]), context, sharded[3])
+    return mid_block.resnets[1](mid, temb, sharded[3]), skips
 
 
 class UNet(nn.Module):
@@ -242,25 +256,29 @@ class UNet(nn.Module):
                 controls: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         """(B, h, w, 4), (B, 320), (B, S, 768) -> (B, h, w, 4). ``controls``: the
         ControlNet's 13 residuals, NCHW (:class:`models.controlnet.ControlNet`),
-        added to the 12 skips and the mid block's output."""
+        added to the 12 skips and the mid block's output (this rank's rows at the
+        H-sharded levels, as the ControlNet under the same scope gives them)."""
         temb = embed_time(self.time_embedding, t_emb)
-        x = apply_conv(self.conv_in, latent.permute(0, 3, 1, 2), padding=1)
-        x, skips = run_down_and_mid(self.down_blocks, self.mid_block, x, temb, context)
+        sharded = spatial.plan(latent.shape[1], latent.shape[2], 4)
+        x = conv3(self.conv_in, latent.permute(0, 3, 1, 2), sharded[0], whole_input=True)
+        x, skips = run_down_and_mid(self.down_blocks, self.mid_block, x, temb, context, sharded)
         if controls is not None:
             x = x + controls[12].to(x.dtype)
             skips = [s + c.to(s.dtype) for s, c in zip(skips, controls[:12])]
 
         for i, level in enumerate(self.up_blocks):
+            sp = sharded[3 - i]
             for j, res in enumerate(level.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=1), temb)
+                x = res(torch.cat([x, skips.pop()], dim=1), temb, sp)
                 if i > 0:
-                    x = level.attentions[j](x, context)
+                    x = level.attentions[j](x, context, sp)
             if i < 3:
-                x = upsample2x_conv3x3(x, level.upsamplers[0].conv.weight,
-                                       level.upsamplers[0].conv.bias)
+                x = upsample(level.upsamplers[0].conv, x, sp, sharded[2 - i])
 
-        x = group_norm_silu(x, self.conv_norm_out.weight, self.conv_norm_out.bias)
-        return apply_conv(self.conv_out, x, padding=1).permute(0, 2, 3, 1)
+        x = conv3(self.conv_out, norm_act(self.conv_norm_out, x, sharded[0]), sharded[0])
+        if sharded[0]:
+            x = spatial.gather_rows(x)
+        return x.permute(0, 2, 3, 1)
 
 
 def fuse_attention_projections(model: nn.Module) -> nn.Module:

@@ -11,9 +11,16 @@ ResBlocks at 128 -> GN+SiLU -> conv 3. The VAE ResBlock has no time embedding; i
 attention block is single-head over h*w tokens scaled by 1/sqrt(C).
 
 The encoder takes NHWC images in [-1, 1] and returns NHWC latents; the decoder
-the other way round. ``state_dict`` keys are diffusers-style
-(``encoder.down_blocks.{i}.*`` and ``quant_conv``; ``decoder.up_blocks.{i}.*`` in
-decoder order and ``post_quant_conv``).
+the other way round. Under :func:`ops.attention.sequence_parallel_scope` each
+resolution that :func:`parallel.spatial.plan` marks is H-sharded end to end,
+where the JAX package anchors it (``minsdtf_tpu/models/vae.py:48``, ``:102``):
+halo-row convs, GroupNorm over the model axis, the single-head attention on the
+sharded ring; the encoder's downsampler out of a sharded level gathers its
+output rows, and the last output of either is gathered once.
+
+``state_dict`` keys are diffusers-style (``encoder.down_blocks.{i}.*`` and
+``quant_conv``; ``decoder.up_blocks.{i}.*`` in decoder order and
+``post_quant_conv``).
 """
 
 from __future__ import annotations
@@ -23,9 +30,11 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from minsdtf_tpu_torch.models.common import apply_conv, apply_dense, build, norm, param_shapes
+from minsdtf_tpu_torch.models.common import (
+    apply_conv, apply_dense, build, conv3, downsample, norm, norm_act, param_shapes, upsample,
+)
 from minsdtf_tpu_torch.ops.attention import single_head_spatial_attention
-from minsdtf_tpu_torch.ops.basic import group_norm, group_norm_silu, upsample2x_conv3x3
+from minsdtf_tpu_torch.parallel import spatial
 
 SCALE_FACTOR = 0.18215
 ENC_WIDTHS = (128, 256, 512, 512)
@@ -42,11 +51,9 @@ class VAEResBlock(nn.Module):
         if cin != cout:
             self.conv_shortcut = nn.Conv2d(cin, cout, 1)
 
-    def forward(self, x):
-        h = group_norm_silu(x, self.norm1.weight, self.norm1.bias)
-        h = apply_conv(self.conv1, h, padding=1)
-        h = group_norm_silu(h, self.norm2.weight, self.norm2.bias)
-        h = apply_conv(self.conv2, h, padding=1)
+    def forward(self, x, sharded: bool = False):
+        h = conv3(self.conv1, norm_act(self.norm1, x, sharded), sharded)
+        h = conv3(self.conv2, norm_act(self.norm2, h, sharded), sharded)
         if hasattr(self, "conv_shortcut"):
             x = apply_conv(self.conv_shortcut, x)
         return h + x
@@ -62,12 +69,12 @@ class VAEAttention(nn.Module):
         self.to_v = nn.Linear(c, c)
         self.to_out = nn.ModuleList([nn.Linear(c, c)])
 
-    def forward(self, x):
-        b, c, h, w = x.shape
-        z = group_norm(x, self.group_norm.weight, self.group_norm.bias)
+    def forward(self, x, sharded: bool = False):
+        b, c, h, w = x.shape  # this rank's rows when sharded
+        z = norm_act(self.group_norm, x, sharded, silu=False)
         z = z.flatten(2).transpose(1, 2)  # (B, HW, C)
         out = single_head_spatial_attention(apply_dense(self.to_q, z), apply_dense(self.to_k, z),
-                                            apply_dense(self.to_v, z))
+                                            apply_dense(self.to_v, z), sharded)
         out = apply_dense(self.to_out[0], out).transpose(1, 2).reshape(b, c, h, w)
         return out + x
 
@@ -78,8 +85,9 @@ class _MidBlock(nn.Module):
         self.resnets = nn.ModuleList([VAEResBlock(c, c), VAEResBlock(c, c)])
         self.attentions = nn.ModuleList([VAEAttention(c)])
 
-    def forward(self, x):
-        return self.resnets[1](self.attentions[0](self.resnets[0](x)))
+    def forward(self, x, sharded: bool = False):
+        x = self.attentions[0](self.resnets[0](x, sharded), sharded)
+        return self.resnets[1](x, sharded)
 
 
 class _Sampler(nn.Module):
@@ -120,15 +128,19 @@ class VAEEncoder(nn.Module):
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         """image (B, H, W, 3) in [-1, 1] -> latent (B, H/8, W/8, 4), mean * 0.18215."""
         e = self.encoder
-        x = apply_conv(e.conv_in, image.permute(0, 3, 1, 2), padding=1)
+        sharded = spatial.plan(image.shape[1], image.shape[2], 4)
+        x = conv3(e.conv_in, image.permute(0, 3, 1, 2), sharded[0], whole_input=True)
         for level, block in enumerate(e.down_blocks):
             for res in block.resnets:
-                x = res(x)
+                x = res(x, sharded[level])
             if level < 3:
-                x = apply_conv(block.downsamplers[0].conv, x, stride=2, padding=((0, 1), (0, 1)))
-        x = e.mid_block(x)
-        x = group_norm_silu(x, e.conv_norm_out.weight, e.conv_norm_out.bias)
-        x = apply_conv(self.quant_conv, apply_conv(e.conv_out, x, padding=1))  # mean | logvar
+                x = downsample(block.downsamplers[0].conv, x, sharded[level], sharded[level + 1],
+                               padding=((0, 1), (0, 1)))
+        x = e.mid_block(x, sharded[3])
+        x = conv3(e.conv_out, norm_act(e.conv_norm_out, x, sharded[3]), sharded[3])
+        x = apply_conv(self.quant_conv, x)  # mean | logvar
+        if sharded[3]:
+            x = spatial.gather_rows(x)
         return (x[:, :4] * SCALE_FACTOR).permute(0, 2, 3, 1)
 
 
@@ -154,16 +166,19 @@ class VAEDecoder(nn.Module):
     def forward(self, latent: torch.Tensor) -> torch.Tensor:
         """latent (B, h, w, 4) -> image (B, 8h, 8w, 3) in [-1, 1]."""
         d = self.decoder
+        sharded = spatial.plan(latent.shape[1], latent.shape[2], 4, up=True)
         x = apply_conv(self.post_quant_conv, latent.permute(0, 3, 1, 2) / SCALE_FACTOR)
-        x = d.mid_block(apply_conv(d.conv_in, x, padding=1))
+        x = conv3(d.conv_in, x, sharded[0], whole_input=True)
+        x = d.mid_block(x, sharded[0])
         for level, block in enumerate(d.up_blocks):
             for res in block.resnets:
-                x = res(x)
+                x = res(x, sharded[level])
             if level < 3:
-                up = block.upsamplers[0].conv
-                x = upsample2x_conv3x3(x, up.weight, up.bias)
-        x = group_norm_silu(x, d.conv_norm_out.weight, d.conv_norm_out.bias)
-        return apply_conv(d.conv_out, x, padding=1).permute(0, 2, 3, 1)
+                x = upsample(block.upsamplers[0].conv, x, sharded[level], sharded[level + 1])
+        x = conv3(d.conv_out, norm_act(d.conv_norm_out, x, sharded[3]), sharded[3])
+        if sharded[3]:
+            x = spatial.gather_rows(x)
+        return x.permute(0, 2, 3, 1)
 
 
 def encoder_param_specs(enc_widths=ENC_WIDTHS) -> Dict[str, Tuple[int, ...]]:

@@ -10,7 +10,11 @@ instead: it is the one path with a backward, so the train step selects it by nam
 Inside :func:`sequence_parallel_scope` a self-attention (not causal, as many keys
 as queries) over at least ``min_seq`` tokens that the mesh axis divides runs as
 ring attention (:mod:`ops.ring_attention`), before any other route is chosen, as
-in the JAX package (``minsdtf_tpu/ops/attention.py:136-145``). So inside both
+in the JAX package (``minsdtf_tpu/ops/attention.py:136-145``). The models keep
+the activations of such a resolution H-sharded end to end
+(:mod:`minsdtf_tpu_torch.parallel.spatial`; the rule is :func:`spatial_sharded`),
+and say so with ``sharded=True``: the tokens are then this rank's slice already,
+and the ring takes and returns them as they are. So inside both
 scopes the ring runs: ``plain_scope`` never wins over SP, and the JAX train step
 never runs under SP either (``make_train_step`` enters ``plain_scope`` only). The
 ring has no backward and raises if asked for a gradient, as the kernels do.
@@ -30,7 +34,7 @@ import torch
 
 from minsdtf_tpu_torch.ops import flash_attention as fa
 from minsdtf_tpu_torch.ops.basic import stats_dtype
-from minsdtf_tpu_torch.ops.ring_attention import ring_multi_head_attention
+from minsdtf_tpu_torch.ops.ring_attention import ring_attention_sharded, ring_multi_head_attention
 from minsdtf_tpu_torch.parallel.mesh import axis_size
 
 _PLAIN = contextvars.ContextVar("minsdtf_plain_attention", default=False)
@@ -76,6 +80,37 @@ def sequence_parallel_key():
     return (axis_name, min_seq, tuple(zip(mesh.mesh_dim_names, mesh.shape)))
 
 
+def sp_shardable(tokens: int):
+    """``(mesh, axis_name, n)`` when this thread's SP setting shards a
+    ``tokens``-long axis over n ranks (n > 1, ``tokens >= min_seq``, n divides
+    ``tokens``); else None. The counterpart of the JAX package's
+    ``_sp_shardable`` (``minsdtf_tpu/ops/attention.py:55-66``)."""
+    sp = _SP.get()
+    if sp is None:
+        return None
+    mesh, axis_name, min_seq = sp
+    n = axis_size(mesh, axis_name)
+    if n <= 1 or tokens < min_seq or tokens % n:
+        return None
+    return mesh, axis_name, n
+
+
+def spatial_sharded(h: int, w: int) -> bool:
+    """Whether an activation of the global spatial size ``h`` x ``w`` is H-sharded
+    under this thread's SP setting: its h*w tokens are shardable
+    (:func:`sp_shardable`) and n divides h, the condition of the JAX package's
+    ``constrain_spatial`` (``:78``). Decided from the global size, which the
+    model's forward passes down, never from a local tensor."""
+    cfg = sp_shardable(h * w)
+    return cfg is not None and h % cfg[2] == 0
+
+
+def sequence_parallel_group():
+    """The process group of this thread's SP axis, or None when SP is off."""
+    sp = _SP.get()
+    return None if sp is None else sp[0].get_group(sp[1])
+
+
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                     causal: bool = False) -> torch.Tensor:
     """(B, S, H, D) attention with fp32 scores and softmax; the PV product runs in
@@ -92,20 +127,22 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-                         scale: Optional[float] = None, causal: bool = False) -> torch.Tensor:
+                         scale: Optional[float] = None, causal: bool = False,
+                         sharded: bool = False) -> torch.Tensor:
     """Scaled dot-product attention over (B, S, H*D) tensors. ``scale`` defaults to
-    ``head_dim ** -0.5``; ``causal=True`` applies the CLIP triangular mask."""
+    ``head_dim ** -0.5``; ``causal=True`` applies the CLIP triangular mask.
+    ``sharded=True``: a self-attention whose q, k and v are this rank's tokens of
+    an H-sharded activation, run as the sharded ring over the SP axis."""
     b, sq, hd = q.shape
     sk = k.shape[1]
     d = hd // num_heads
     if scale is None:
         scale = float(d) ** -0.5
-    sp = _SP.get()
-    if sp is not None and not causal and sq == sk:
-        mesh, axis_name, min_seq = sp
-        n = axis_size(mesh, axis_name)
-        if n > 1 and sq >= min_seq and sq % n == 0:
-            return ring_multi_head_attention(q, k, v, num_heads, mesh, axis_name, scale=scale)
+    if sharded:
+        return ring_attention_sharded(q, k, v, num_heads, sequence_parallel_group(), scale)
+    cfg = sp_shardable(sq) if not causal and sq == sk else None
+    if cfg is not None:
+        return ring_multi_head_attention(q, k, v, num_heads, cfg[0], cfg[1], scale=scale)
     qh = q.unflatten(-1, (num_heads, d))
     kh = k.unflatten(-1, (num_heads, d))
     vh = v.unflatten(-1, (num_heads, d))
@@ -120,6 +157,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_
     return out.reshape(b, sq, hd)
 
 
-def single_head_spatial_attention(q, k, v) -> torch.Tensor:
+def single_head_spatial_attention(q, k, v, sharded: bool = False) -> torch.Tensor:
     """VAE attention block: one head over h*w tokens, scale 1/sqrt(C). (B, S, C)."""
-    return multi_head_attention(q, k, v, num_heads=1, scale=float(q.shape[-1]) ** -0.5)
+    return multi_head_attention(q, k, v, num_heads=1, scale=float(q.shape[-1]) ** -0.5,
+                                sharded=sharded)

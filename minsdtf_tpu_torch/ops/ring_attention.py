@@ -7,6 +7,10 @@ and each rank merges the blockwise softmax statistics ``(o, m, l)`` of every
 slice into its output rows, as the JAX ring does (``:62-73``). The next shift is
 posted before the local block computes, so the transfer overlaps the compute
 where the backend allows (over ``gloo`` the copy to host memory does not).
+:func:`ring_attention_sharded` takes and returns this rank's tokens of an
+activation that stays sharded end to end (spatial SP,
+:mod:`minsdtf_tpu_torch.parallel.spatial`); :func:`ring_multi_head_attention`
+takes whole inputs, slices them and gathers the output.
 
 The block product is plain PyTorch, as the JAX ring's is an ``einsum`` outside
 any Pallas kernel (``:27-34``): no TPU kernel is ported here, and neither K1 nor
@@ -85,6 +89,22 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group,
         l = l * c_acc + l_b * c_b
         m = m_new
     return (o / _heads_last(l)).to(q.dtype)
+
+
+def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                           group, scale: Optional[float] = None) -> torch.Tensor:
+    """This rank's (B, S/n, H*D) tokens of q, k and v, whose slices the ranks of
+    ``group`` hold in group-rank order -> this rank's (B, S/n, H*D) output rows:
+    no slicing and no gather, for activations that stay sharded end to end
+    (:mod:`minsdtf_tpu_torch.parallel.spatial`). ``.calls`` counts the calls."""
+    b, s, hd = q.shape
+    heads = [t.unflatten(-1, (num_heads, hd // num_heads)) for t in (q, k, v)]
+    out = ring_attention(*heads, group, scale)
+    ring_attention_sharded.calls += 1
+    return out.reshape(b, s, hd)
+
+
+ring_attention_sharded.calls = 0
 
 
 def ring_multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,5 +1,6 @@
 """The collectives the port uses, in one place: a sum all-reduce over a group, an
-all-gather over a group, and the ring shift of ring attention.
+all-gather over a group, the ring shift of ring attention, and the halo exchange
+of an H-sharded convolution (:mod:`minsdtf_tpu_torch.parallel.spatial`).
 
 Every call waits with a timeout, :data:`TIMEOUT`, which
 :func:`minsdtf_tpu_torch.parallel.mesh.init_process` also gives the process
@@ -9,7 +10,8 @@ What ``gloo`` takes on CUDA tensors: its all-reduce and all-gather have CUDA
 paths (they stage through host memory themselves); its send and recv read the
 tensor's pointer as host memory. So :func:`ring_shift` stages CUDA tensors
 through pinned host buffers when the group's backend is ``gloo``, chosen by the
-backend's name; NCCL takes them as they are. The all-reduce sums bf16 and fp16
+backend's name; NCCL takes them as they are. The halo exchange is an all-gather,
+so it takes one path on either backend. The all-reduce sums bf16 and fp16
 in fp32 and rounds once, whatever the backend.
 
 :data:`stats` counts each kind of call, its bytes and the host seconds it held
@@ -26,7 +28,7 @@ import torch
 import torch.distributed as dist
 
 TIMEOUT = datetime.timedelta(seconds=300)
-_KINDS = ("all_reduce", "all_gather", "ring_shift")
+_KINDS = ("all_reduce", "all_gather", "ring_shift", "halo")
 stats = {kind: {"calls": 0, "bytes": 0, "seconds": 0.0} for kind in _KINDS}
 
 
@@ -62,6 +64,25 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     dist.all_gather(parts, t, group=group, async_op=True).wait(TIMEOUT)
     _count("all_gather", t.numel() * t.element_size() * len(parts), t0)
     return torch.cat(parts, dim=dim)
+
+
+def halo_exchange(x: torch.Tensor, group, top: int, bottom: int):
+    """The rows that this rank of ``group`` needs from its neighbours, where each
+    rank holds its slice of H of an NCHW tensor in group-rank order: ``(above,
+    below)``, the previous rank's last ``top`` rows and the next rank's first
+    ``bottom`` rows, zeros past the first and last rank. One all-gather of every
+    rank's (first ``bottom``, last ``top``) rows moves both edges."""
+    t0 = time.perf_counter()
+    n, r, h = dist.get_world_size(group), dist.get_rank(group), x.shape[2]
+    edge = torch.cat([x[:, :, :bottom], x[:, :, h - top:]], dim=2).contiguous()
+    parts = [torch.empty_like(edge) for _ in range(n)]
+    dist.all_gather(parts, edge, group=group, async_op=True).wait(TIMEOUT)
+    above = (parts[r - 1][:, :, bottom:] if r > 0
+             else x.new_zeros(*x.shape[:2], top, x.shape[3]))
+    below = (parts[r + 1][:, :, :bottom] if r < n - 1
+             else x.new_zeros(*x.shape[:2], bottom, x.shape[3]))
+    _count("halo", edge.numel() * edge.element_size() * n, t0)
+    return above, below
 
 
 class _Shift:

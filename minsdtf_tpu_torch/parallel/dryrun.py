@@ -9,8 +9,11 @@ Spawns n ranks (``gloo``; by default every rank on the current CUDA card, with
 1. the train step under DP x TP (UNet widths (32, 64, 128, 128), fp32);
 2. the serving sampler, ``sampler.generate`` with CFG and the VAE decode, under
    the same DP x TP sharding;
-3. sequence-parallel generation (when model > 1): ring attention over the model
-   axis at a 16x16 latent with ``min_seq=256``, weights whole.
+3. sequence-parallel generation (when model > 1): spatial SP over the model axis
+   at a 16x16 latent with ``min_seq=256``, weights whole: the UNet's level 0 and
+   every level of the decoder H-sharded, halo-row convs, GroupNorm over the
+   axis, the sharded ring; rank 0 also prints the count of each kind of
+   collective it made.
 
 Rank 0 prints the JAX script's lines; the exit code is 0 when every part ran.
 """
@@ -34,7 +37,7 @@ def _rank(n: int, model: int, device: str) -> list:
     from minsdtf_tpu_torch.models import unet as unet_lib
     from minsdtf_tpu_torch.models import vae as vae_lib
     from minsdtf_tpu_torch.ops import attention
-    from minsdtf_tpu_torch.parallel import sharding
+    from minsdtf_tpu_torch.parallel import comm, sharding
     from minsdtf_tpu_torch.parallel.mesh import make_mesh
     from minsdtf_tpu_torch.training import train_step as ts
 
@@ -79,15 +82,21 @@ def _rank(n: int, model: int, device: str) -> list:
     lines.append(f"dryrun_multichip serving (sampler.generate, DP x TP) OK: image "
                  f"{tuple(img.shape)}")
 
-    # 3. sequence-parallel generation: ring attention over the model axis
+    # 3. spatial sequence parallelism over the model axis
     if model > 1:
         unet = sharding.replicate_module(unet_lib.init(dev, seed=2, **SMALL).eval(), mesh)
         decoder = sharding.replicate_module(decoder, mesh)
         lat_sp = torch.from_numpy(rng.normal(0, 1, (1, 16, 16, 4)).astype(np.float32)).to(dev)
+        comm.reset_stats()
         with attention.sequence_parallel_scope(mesh, "model", min_seq=256):
             img_sp, _ = serve(unet, decoder, lat_sp, ctx[:1], unc[:1])
-        lines.append(f"dryrun_multichip sequence-parallel (ring attention) OK: image "
+        if img_sp.shape != (1, 128, 128, 3) or comm.stats["halo"]["calls"] == 0:
+            raise RuntimeError(f"sequence-parallel image {tuple(img_sp.shape)}, "
+                               f"{comm.stats['halo']['calls']} halo exchanges")
+        lines.append(f"dryrun_multichip sequence-parallel (spatial, ring attention) OK: image "
                      f"{tuple(img_sp.shape)}")
+        lines.append("dryrun_multichip sequence-parallel collectives: " + ", ".join(
+            f"{kind} {entry['calls']}" for kind, entry in comm.stats.items()))
     lines.append("dryrun_multichip OK")
     return lines
 

@@ -23,11 +23,14 @@ Three layouts differ from the JAX package's, and no result does:
     value half and a gate half. Rank r holds slice r of *both* halves, and
     ``ff.net.2`` the matching slice of its input; GSPMD reshards JAX's contiguous
     slice for the split, the port slices so that nothing needs resharding.
-  - A single-head attention (the VAE's mid block, which ``param_spec`` marks
-    column/row-parallel) stays whole: its q/k/v/out products run on every rank and
-    its attention keeps K2 path B, where GSPMD splits the head's 512 dims and
-    all-reduces partial scores. A multi-head attention whose head count ``model``
-    does not divide raises ``ValueError`` (CLIP's 12 heads at model = 8).
+  - An attention whose head count ``model`` does not divide stays whole: its
+    q/k/v/out products run on every rank. That is the single-head VAE attention
+    (which ``param_spec`` marks column/row-parallel; it keeps K2 path B, where
+    GSPMD splits the head's 512 dims and all-reduces partial scores) and CLIP's
+    12 heads at model = 8, where GSPMD shards the 768 columns 96 to a device and
+    reshards them for the heads. This is a difference in layout, not in results:
+    every rank computes the same attention, and the rest of the layer (the MLP)
+    is sharded as in JAX.
   - Fused projections (``to_qkv``/``to_kv``) are refused: under a mesh the
     pipeline does not fuse, as the JAX pipeline fuses only without one.
 """
@@ -152,9 +155,10 @@ class RowParallelLinear(ParallelLinear):
 def tp_shard(model: nn.Module, rank: int, size: int, group) -> nn.Module:
     """Megatron TP of ``model`` in place: rank ``rank`` of ``size`` keeps its slice
     of every matched ``nn.Linear``, and every attention (a module with a
-    ``num_heads`` attribute) its ``num_heads // size`` heads. Single-head
-    attentions stay whole; a fused projection, a head count or a width that
-    ``size`` does not divide raise ``ValueError`` before anything changes."""
+    ``num_heads`` attribute) its ``num_heads // size`` heads. An attention whose
+    head count ``size`` does not divide stays whole (single-head ones, CLIP's 12
+    heads at 8); a fused projection, or a width that ``size`` does not divide
+    where the heads do, raise ``ValueError`` before anything changes."""
     if getattr(model, "tp_size", 1) != 1:
         raise ValueError(f"the module is already sharded over model={model.tp_size}")
     if size == 1:
@@ -169,10 +173,8 @@ def tp_shard(model: nn.Module, rank: int, size: int, group) -> nn.Module:
                              "build the model unfused under a mesh")
         if n % size == 0:
             heads[name] = n // size
-        elif n == 1:
-            whole.append(name + ".")
         else:
-            raise ValueError(f"{name}: {n} heads cannot be split over model={size}")
+            whole.append(name + ".")
     swaps = {}
     for name, m in model.named_modules():
         if not isinstance(m, nn.Linear) or name.startswith(tuple(whole)):

@@ -51,11 +51,14 @@ the projections are not fused under a mesh, as in the JAX pipeline), the batch i
 split over the data axis: every rank builds the whole batch's host inputs from the
 seed (noise, step noise, contexts, inpaint and control inputs), runs the sampler on
 its rows, and the images and latents are all-gathered, so every rank returns what
-one device would. ``batch_size`` must be a multiple of the data axis.
-``sequence_parallel=True`` keeps the weights whole and runs each self-attention
-over ``MINSDTF_SP_MIN_SEQ`` tokens or more (read at construction, default 16384:
-the 1024px latent) as ring attention over the model axis
-(:func:`ops.attention.sequence_parallel_scope`, entered per generation call).
+one device would. Where the data axis does not divide ``batch_size``, every data
+rank runs the whole batch and nothing is gathered, as the JAX pipeline's
+replicated batch does. ``sequence_parallel=True`` keeps the weights whole and
+runs spatial sequence parallelism over the model axis
+(:func:`ops.attention.sequence_parallel_scope`, entered per generation call and
+per encode): every UNet, ControlNet and VAE level of ``MINSDTF_SP_MIN_SEQ``
+tokens or more (read at construction, default 16384: the 1024px latent) stays
+H-sharded (:mod:`parallel.spatial`), with its self-attentions on the ring.
 ``weight_dtype`` and ``mesh`` together raise ``ValueError``, as in the JAX pipeline.
 
 The reference-compatible handles (``diffusion_model``, ``text_clip_embedding``,
@@ -483,16 +486,18 @@ class StableDiffusion:
             return contextlib.nullcontext()
         return attention_ops.sequence_parallel_scope(self.mesh, MODEL_AXIS, self._sp_min_seq)
 
+    def _splits_batch(self, batch: int) -> bool:
+        """Whether the mesh's data axis splits a batch of ``batch``: it has more
+        than one rank and divides ``batch``. Otherwise every data rank runs the
+        whole batch, as the JAX pipeline's replicated batch does."""
+        n = 1 if self.mesh is None else axis_size(self.mesh, DATA_AXIS)
+        return n > 1 and batch % n == 0
+
     def _data_rows(self, batch: int) -> Callable:
         """``rows(t, dim=0)``: this data rank's rows of ``t`` where its ``dim`` holds
-        the whole batch of ``batch``, else ``t``; the identity without DP. Raises
-        ``ValueError`` where the data axis does not divide ``batch``."""
-        n = 1 if self.mesh is None else axis_size(self.mesh, DATA_AXIS)
-        if n == 1:
+        the whole batch of ``batch`` and the data axis splits it, else ``t``."""
+        if not self._splits_batch(batch):
             return lambda t, dim=0: t
-        if batch % n:
-            raise ValueError(f"batch_size={batch} cannot be split over data={n}; "
-                             "use a multiple of the mesh's data axis")
         return lambda t, dim=0: (t if t.shape[dim] != batch
                                  else sharding.shard_batch(t, self.mesh, dim))
 
@@ -632,8 +637,8 @@ class StableDiffusion:
         (:meth:`generate_images`). img2img and inpaint still wait once, for the
         encoded reference latent (:meth:`_encode_image`).
 
-        Under a mesh with a data axis of n, ``batch_size`` must be a multiple of n:
-        each rank samples its rows and the results are gathered."""
+        Under a mesh whose data axis of n divides ``batch_size``, each rank samples
+        its rows and the results are gathered; otherwise each runs the whole batch."""
         if diffusion_noise is not None and seed is not None:
             raise ValueError("`diffusion_noise` and `seed` should not both be passed to "
                              "`generate_image`.")
@@ -706,7 +711,7 @@ class StableDiffusion:
                 inpaint=inpaint, callback=callback, mode=schedule.mode,
                 step_noise=step_noise, v_prediction=self.prediction_type == "v",
                 trace_latents=return_trajectory)
-        if self.mesh is not None:
+        if self._splits_batch(batch_size):
             image, latent = (sharding.gather_batch(t, self.mesh) for t in (image, latent))
             trajectory = [sharding.gather_batch(t, self.mesh, 1) for t in trajectory]
         out = [image]

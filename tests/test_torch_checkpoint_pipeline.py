@@ -3,6 +3,7 @@ a full-width CLIP checkpoint (fp16 ``.safetensors``) loaded by both packages in
 fp32 on the CPU, the contexts after each ``set_lora``, the reference-compatible
 text handles, fetching through ``weights.fetch``, and what raises."""
 
+import shutil
 import urllib.request
 
 import jax.numpy as jnp
@@ -14,7 +15,9 @@ import oracle_utils
 from minsdtf_tpu.pipeline import StableDiffusion as JaxStableDiffusion
 from minsdtf_tpu.weights import convert as jconvert
 from minsdtf_tpu_torch import StableDiffusion
-from torch_port_utils import one_torch_thread, write_clip_lora, write_merges  # noqa: F401
+from torch_port_utils import (  # noqa: F401 (fixtures)
+    one_torch_thread, tmp_path, write_clip_lora, write_merges,
+)
 
 TOL = 1e-5
 Q_PROJ = "text_model.encoder.layers.0.self_attn.q_proj"
@@ -27,7 +30,8 @@ def files(tmp_path_factory):
     directory = tmp_path_factory.mktemp("ckpt")
     sd = oracle_utils.synth_state_dict(jconvert._text_encoder_specs(), np.random.RandomState(0))
     te = oracle_utils.save_safetensors(sd, str(directory / "te.safetensors"))
-    return te, write_merges(directory / "merges.txt.gz")
+    yield te, write_merges(directory / "merges.txt.gz")
+    shutil.rmtree(directory)  # the checkpoint and its converted caches
 
 
 @pytest.fixture(scope="module")

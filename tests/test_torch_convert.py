@@ -30,7 +30,7 @@ from minsdtf_tpu_torch.models import unet as tunet
 from minsdtf_tpu_torch.models import vae as tvae
 from minsdtf_tpu_torch.weights import convert as tconvert
 from minsdtf_tpu_torch.weights.from_jax import from_jax, split_vae
-from torch_port_utils import one_torch_thread  # noqa: F401
+from torch_port_utils import one_torch_thread, tmp_path  # noqa: F401 (fixtures)
 
 SMALL = dict(widths=(32, 64, 128, 128), temb_dim=128)
 VAE_SMALL = dict(enc_widths=(32, 32, 64, 64), dec_widths=(64, 64, 32, 32))

@@ -27,7 +27,7 @@ from minsdtf_tpu_torch.weights import quantize as tquantize
 from minsdtf_tpu_torch.weights.from_jax import from_jax, install_int8_sites
 from torch_port_utils import (  # noqa: F401
     UNET, assert_int8_image, assert_same_int8_sites, int8_pipelines, int8_txt2img_pair, load,
-    make_pipelines, one_torch_thread, write_merges,
+    make_pipelines, one_torch_thread, tmp_path, write_merges,
 )
 
 

@@ -1,6 +1,7 @@
 """``python -m minsdtf_tpu_torch.parallel.dryrun --n 4 --device cpu``: the port's
 counterpart of ``__graft_entry__.py`` ``dryrun_multichip`` on four ``gloo`` CPU
-ranks (mesh (2, 2)) exits 0 and prints the JAX script's lines."""
+ranks (mesh (2, 2)) exits 0 and prints the JAX script's lines, and the count of
+each kind of collective of its spatial sequence-parallel run."""
 
 import os
 import subprocess
@@ -19,6 +20,11 @@ def test_dryrun_on_four_cpu_ranks():
     assert lines[1].startswith("dryrun_multichip train step OK: loss=")
     assert lines[2] == ("dryrun_multichip serving (sampler.generate, DP x TP) OK: "
                         "image (2, 64, 64, 3)")
-    assert lines[3] == ("dryrun_multichip sequence-parallel (ring attention) OK: "
+    assert lines[3] == ("dryrun_multichip sequence-parallel (spatial, ring attention) OK: "
                         "image (1, 128, 128, 3)")
-    assert lines[4:] == ["dryrun_multichip OK"]
+    counts = dict(part.rsplit(" ", 1) for part in
+                  lines[4].removeprefix("dryrun_multichip sequence-parallel collectives: ")
+                  .split(", "))
+    assert set(counts) == {"all_reduce", "all_gather", "ring_shift", "halo"}, lines[4]
+    assert all(int(counts[kind]) > 0 for kind in counts), lines[4]
+    assert lines[5:] == ["dryrun_multichip OK"]

@@ -2,9 +2,10 @@
 pipeline with a mesh of the conftest's virtual devices, on the same small params
 (``torch_port_utils.make_pipelines``), 64 px, 3 steps, fp32: txt2img at batch 2
 on mesh (2, 1), each rank sampling its row; ControlNet txt2img under TP on mesh
-(1, 2). Latent 1e-3, uint8 +-1. Also the ``ValueError`` of a batch that the data
-axis does not divide and of ``weight_dtype`` with a mesh."""
+(1, 2). Latent 1e-3, uint8 +-1. Also the ``ValueError`` of ``weight_dtype``
+with a mesh. The module files are removed when the module's tests end."""
 
+import shutil
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -68,7 +69,9 @@ def runs(tmp_path_factory):
             j = jax_pipeline(jpipe, data, model)
             want[path] = j.generate_image(j.encode_text("hello world"), guidance_rescale=0.7,
                                           **COMMON, **kw)
-        return future.result(), want
+        result = future.result(), want
+    yield result
+    shutil.rmtree(tmp)  # the full-width CLIP alone is 492 MB
 
 
 @pytest.mark.parametrize("path,batch", [("dp", 2), ("tp_controlnet", 1)])
@@ -92,5 +95,4 @@ def test_tp_shards_the_heads_and_dp_gathers_every_row(runs):
 def test_value_errors(runs):
     got, _ = runs
     for rank in got:
-        assert "batch_size=3 cannot be split over data=2" in rank["errors"]["batch 3 on data=2"]
         assert "single-device" in rank["errors"]["weight_dtype with a mesh"]

@@ -2,9 +2,9 @@
 ``sampler.generate`` under the same meshes of the conftest's virtual devices, at
 ``tests/test_sharding.py``'s settings: DP x TP on mesh (4, 2), CFG 7.5, rescale
 0.7, 2 DDIM steps and the VAE decode at batch 4 (latent 5e-4, uint8 mean
-difference < 0.05); and sequence parallelism on mesh (2, 4), ring attention over
-the model axis at a 32x32 latent with ``min_seq=1024``, weights whole (latent
-5e-4)."""
+difference < 0.05); and spatial sequence parallelism on mesh (2, 4) at a 32x32
+latent with ``min_seq=1024``, weights whole: level 0 H-sharded over the model
+axis, its self-attentions on the sharded ring (latent 5e-4)."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -101,3 +101,15 @@ def test_sequence_parallel_sampler_matches_jax_under_the_same_mesh(runs):
         # level 0's self-attention (1024 tokens) in both UNet blocks of each of
         # the 5 transformer levels at 32x32: down 2, up 3; 2 steps, no CFG
         assert rank["ring_calls"] == 2 * 5, rank["ring_calls"]
+
+
+def test_sequence_parallel_sampler_keeps_level_0_sharded(runs):
+    got, _ = runs
+    for rank in got:
+        assert rank["ring_whole"] == 0  # no ring call gathers its output
+        calls = rank["spatial"]
+        # a UNet call: the downsampler's and conv_out's output rows are gathered;
+        # the 13 3x3 convs of level 0 (conv_in, 4 down, 6 up, conv_out and the
+        # downsampler) run on rows
+        assert calls["gather_rows"] == 2 * 2 and calls["halo_conv2d"] == 2 * 13, calls
+        assert calls["upsample2x_conv3x3"] == 2 and calls["group_norm"] == 2 * 16, calls

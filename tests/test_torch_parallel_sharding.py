@@ -132,14 +132,34 @@ def test_single_head_vae_attention_stays_whole(jax_params):
         None, "model")
 
 
-@pytest.mark.parametrize("model,size", [("clip", 8), ("unet", 3), ("controlnet", 3)])
+@pytest.mark.parametrize("model,size", [("clip", 5), ("unet", 3), ("controlnet", 3)])
 def test_a_head_count_the_model_axis_does_not_divide_raises(jax_params, model, size):
+    # the attentions would stay whole, but the feed-forward widths (CLIP's 3072,
+    # GEGLU's 128 here) do not split either: that raises, before anything changes
     module = port_module(model, jax_params[model])
-    with pytest.raises(ValueError, match="heads cannot be split"):
+    with pytest.raises(ValueError, match=f"cannot be split over model={size}"):
         tsharding.tp_shard(module, 0, size, group=None)
     assert not any(isinstance(m, tsharding.ParallelLinear) for m in module.modules())
     assert {m.num_heads for m in module.modules() if hasattr(m, "num_heads")} == {
         12 if model == "clip" else 8}
+
+
+def test_clip_attention_whose_heads_model_8_does_not_divide_stays_whole(jax_params):
+    module = port_module("clip", jax_params["clip"])
+    whole = {k: v.clone() for k, v in module.state_dict().items()}
+    local = tsharding.tp_shard(module, 3, 8, group=None)
+    assert local.tp_size == 8
+    for name, m in local.named_modules():
+        if hasattr(m, "num_heads"):  # 12 heads on every rank, q/k/v/out whole
+            assert m.num_heads == 12, name
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                assert type(getattr(m, proj)) is nn.Linear, (name, proj)
+                assert torch.equal(getattr(m, proj).weight, whole[f"{name}.{proj}.weight"])
+    fc1 = local.text_model.encoder.layers[0].mlp.fc1
+    assert isinstance(fc1, tsharding.ColumnParallelLinear)  # the MLP is sharded as in JAX
+    np.testing.assert_array_equal(
+        fc1.weight.detach().numpy(),
+        whole["text_model.encoder.layers.0.mlp.fc1.weight"].numpy()[3 * 384:4 * 384])
 
 
 def test_fused_projections_and_a_second_shard_raise(jax_params):

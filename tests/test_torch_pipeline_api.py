@@ -3,6 +3,8 @@ with ``_defer_fetch``) against the JAX pipeline's on the same small params, fp32
 on the CPU; ``warm_text``; the prompt cache (hits, eviction, textual inversion
 left out, copies returned, emptied by ``set_lora``) and the schedule cache."""
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -158,7 +160,8 @@ def clip_pipelines(tmp_path_factory, bpe_path):
                                bpe_path=bpe_path)
     pipe = StableDiffusion(64, 64, text_encoder_ckpt=te, compute_dtype=torch.float32,
                            device="cpu", bpe_path=bpe_path)
-    return jpipe, pipe
+    yield jpipe, pipe
+    shutil.rmtree(directory)  # the checkpoint and its converted caches, 1.2 GB
 
 
 def test_set_lora_empties_the_prompt_cache(clip_pipelines, tmp_path):

@@ -18,7 +18,7 @@ from minsdtf_tpu_torch.models import unet as tunet
 from minsdtf_tpu_torch.models import vae as tvae
 from minsdtf_tpu_torch.ops import attention as tattn
 from minsdtf_tpu_torch.ops import ring_attention as tring
-from minsdtf_tpu_torch.parallel import sharding
+from minsdtf_tpu_torch.parallel import sharding, spatial
 from minsdtf_tpu_torch.parallel.mesh import make_mesh
 from minsdtf_tpu_torch.training import train_step as tts
 
@@ -109,12 +109,15 @@ def sampler_runs(unet_path: str, decoder_path: str, dp_inputs, sp_inputs):
     sp_mesh = make_mesh(2, 4)
     unet = sharding.replicate_module(loaded(tunet.UNet(**SMALL), unet_path), sp_mesh)
     latent0, context = (torch.from_numpy(a) for a in sp_inputs)
-    before = tring.ring_multi_head_attention.calls
+    whole, sharded = tring.ring_multi_head_attention.calls, tring.ring_attention_sharded.calls
+    spatial.reset_calls()
     with tattn.sequence_parallel_scope(sp_mesh, "model", min_seq=1024):
         _, sp_latent = sampler.generate(unet, None, latent0, context, None, t_embs, rows,
                                         0.0, 0.0)
     return dict(image=image, latent=latent, sp_latent=sp_latent.numpy(),
-                ring_calls=tring.ring_multi_head_attention.calls - before)
+                ring_whole=tring.ring_multi_head_attention.calls - whole,
+                ring_calls=tring.ring_attention_sharded.calls - sharded,
+                spatial=dict(spatial.calls))
 
 
 def _pipeline(paths: dict, bpe: str, size: int, mesh, controlnet: bool = False, **kw):
@@ -131,16 +134,12 @@ def _pipeline(paths: dict, bpe: str, size: int, mesh, controlnet: bool = False, 
 
 def pipeline_runs(paths: dict, bpe: str, size: int, edges: np.ndarray):
     """``StableDiffusion(mesh=...)`` on two ranks: txt2img at batch 2 on mesh
-    (2, 1), ControlNet txt2img on mesh (1, 2) (TP), and the ``ValueError`` of a
-    batch the data axis does not divide and of ``weight_dtype`` with a mesh."""
+    (2, 1), ControlNet txt2img on mesh (1, 2) (TP), and the ``ValueError`` of
+    ``weight_dtype`` with a mesh."""
     common = dict(num_steps=3, seed=7, return_latent=True)
     dp = _pipeline(paths, bpe, size, make_mesh(2, 1))
     out = {"dp": dp.text_to_image("hello world", batch_size=2, **common)}
     errors = {}
-    try:
-        dp.text_to_image("hello world", batch_size=3, **common)
-    except ValueError as e:
-        errors["batch 3 on data=2"] = str(e)
     try:
         StableDiffusion(size, size, device="cpu", mesh=dp.mesh, weight_dtype="int8")
     except ValueError as e:
@@ -168,3 +167,149 @@ def train_steps(state_path: str, batch: dict, lr: float, steps: int = 2):
     losses = [float(step_fn(unet, opt, local)) for _ in range(steps)]
     params = {n: p.detach().numpy().copy() for n, p in unet.named_parameters()}
     return dict(losses=losses, params=params, model_rank=mesh.get_local_rank("model"))
+
+
+def _conv(weight: np.ndarray, bias: np.ndarray, dtype) -> torch.nn.Conv2d:
+    conv = torch.nn.Conv2d(weight.shape[1], weight.shape[0], weight.shape[2], dtype=dtype)
+    conv.weight.data = torch.from_numpy(weight).to(dtype)
+    conv.bias.data = torch.from_numpy(bias).to(dtype)
+    return conv
+
+
+def spatial_ops(inputs: dict):
+    """``parallel.spatial`` on the model axis of mesh (1, world), in fp64 and fp32:
+    each conv case of ``inputs["convs"]`` (name: (stride, padding)) by
+    ``halo_conv2d`` on this rank's rows of ``inputs["x"]`` (and once with
+    ``whole_input``), the upsampler into a sharded level from a whole and from a
+    sharded input, and ``group_norm`` (with and without SiLU), each gathered.
+    Returns ``{(dtype, case): whole output}``, the spatial calls and the
+    collectives."""
+    from minsdtf_tpu_torch.parallel import comm, spatial
+
+    n = torch.distributed.get_world_size()
+    mesh = make_mesh(1, n)
+    out = {}
+    spatial.reset_calls()
+    comm.reset_stats()
+    with tattn.sequence_parallel_scope(mesh, "model", min_seq=1):
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype).split(".")[-1]
+            x = torch.from_numpy(inputs["x"]).to(dtype)
+            small = torch.from_numpy(inputs["small"]).to(dtype)
+            conv = _conv(inputs["weight"], inputs["bias"], dtype)
+            up = _conv(inputs["up_weight"], inputs["up_bias"], dtype)
+            for case, (stride, padding) in inputs["convs"].items():
+                y = spatial.halo_conv2d(conv, spatial.local_rows(x), stride, padding)
+                out[name, case] = spatial.gather_rows(y).numpy()
+            out[name, "3x3 whole input"] = spatial.gather_rows(
+                spatial.halo_conv2d(conv, x, whole_input=True)).numpy()
+            out[name, "upsample whole input"] = spatial.gather_rows(
+                spatial.upsample2x_conv3x3(up, small, whole_input=True)).numpy()
+            out[name, "upsample sharded input"] = spatial.gather_rows(
+                spatial.upsample2x_conv3x3(up, spatial.local_rows(x), whole_input=False)).numpy()
+            gn = torch.from_numpy(inputs["gn_x"]).to(dtype)
+            scale, shift = (torch.from_numpy(inputs[k]) for k in ("gn_scale", "gn_bias"))
+            for silu in (False, True):
+                got = spatial.group_norm(spatial.local_rows(gn), scale, shift, silu=silu)
+                out[name, f"group_norm silu={silu}"] = spatial.gather_rows(got).numpy()
+    return out, dict(spatial.calls), {k: v["calls"] for k, v in comm.stats.items()}
+
+
+class _Recording:
+    """In the body of a ``with``: the input shape of every ``F.conv2d`` call and the
+    (shape, dim) of every tensor that ``comm.all_gather`` gathers, in order."""
+
+    def __enter__(self):
+        from minsdtf_tpu_torch.parallel import comm
+
+        self.convs, self.gathers = [], []
+        self._conv, self._gather = torch.nn.functional.conv2d, comm.all_gather
+
+        def conv(x, *a, **kw):
+            self.convs.append(tuple(x.shape))
+            return self._conv(x, *a, **kw)
+
+        def gather(t, group, dim=0):
+            self.gathers.append((tuple(t.shape), dim))
+            return self._gather(t, group, dim)
+
+        torch.nn.functional.conv2d, comm.all_gather = conv, gather
+        return self
+
+    def __exit__(self, *exc):
+        from minsdtf_tpu_torch.parallel import comm
+
+        torch.nn.functional.conv2d, comm.all_gather = self._conv, self._gather
+
+
+def spatial_unet(state: dict, inputs, min_seq: int):
+    """The small UNet (``state``: numpy arrays) whole on every rank of mesh
+    (1, world), its forward on the whole ``inputs`` under
+    ``sequence_parallel_scope(min_seq=min_seq)``. Returns the output, the conv
+    input shapes and gathers of the forward, the collectives' calls, the spatial
+    calls and the two rings' calls."""
+    from minsdtf_tpu_torch.parallel import comm, spatial
+
+    mesh = make_mesh(1, torch.distributed.get_world_size())
+    unet = tunet.UNet(**SMALL)
+    unet.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    unet = sharding.replicate_module(unet.eval(), mesh)
+    comm.reset_stats()
+    spatial.reset_calls()
+    whole, sharded = tring.ring_multi_head_attention.calls, tring.ring_attention_sharded.calls
+    with tattn.sequence_parallel_scope(mesh, "model", min_seq=min_seq), torch.inference_mode(), \
+            _Recording() as rec:
+        out = unet(*(torch.from_numpy(a) for a in inputs)).numpy()
+    return dict(out=out, convs=rec.convs, gathers=rec.gathers,
+                comm={k: v["calls"] for k, v in comm.stats.items()}, spatial=dict(spatial.calls),
+                ring_whole=tring.ring_multi_head_attention.calls - whole,
+                ring_sharded=tring.ring_attention_sharded.calls - sharded)
+
+
+def seeded_modules() -> dict:
+    """The small pipeline modules from seeds, unfused, on the CPU, in eval mode,
+    under the pipeline's attribute names: the UNet (seed 0), CLIP (1), the VAE
+    decoder (2), the ControlNet (3) and the VAE encoder (4). Every rank builds the
+    same; the tests convert them for the JAX package
+    (``torch_port_utils.to_jax_params``), so no weights file is written."""
+    return {"_unet": tunet.init("cpu", seed=0, **PIPE_UNET).eval(),
+            "_text_model": tclip.init("cpu", seed=1).eval(),
+            "_decoder": tvae.init_decoder("cpu", seed=2, dec_widths=VAE_DEC).eval(),
+            "_controlnet": tcontrolnet.init("cpu", seed=3, **PIPE_UNET).eval(),
+            "_encoder": tvae.init_encoder("cpu", seed=4, enc_widths=VAE_ENC).eval()}
+
+
+def mesh_pipeline(bpe: str, size: int, mesh_shape, calls, settings: dict):
+    """``StableDiffusion(mesh=make_mesh(*mesh_shape), **settings)`` holding
+    :func:`seeded_modules`: each ``(label, method, kwargs)`` of ``calls`` on "hello
+    world" (3 steps, seed 7, latent returned). Returns ``{label: (image, latent)}``
+    and, per label, the collectives' and the spatial operations' calls."""
+    from minsdtf_tpu_torch.parallel import comm
+
+    pipe = StableDiffusion(size, size, bpe_path=bpe, compute_dtype=torch.float32, device="cpu",
+                           mesh=make_mesh(*mesh_shape), **settings)
+    for name, module in seeded_modules().items():
+        setattr(pipe, name, module)
+        getattr(pipe, name[1:])  # placed on the mesh now: its weight check gathers
+    out, counts = {}, {}
+    for label, method, kw in calls:
+        comm.reset_stats()
+        spatial.reset_calls()
+        out[label] = getattr(pipe, method)("hello world", num_steps=3, seed=7, return_latent=True,
+                                           **kw)
+        counts[label] = dict(comm={k: v["calls"] for k, v in comm.stats.items()},
+                             spatial=dict(spatial.calls))
+    return out, counts
+
+
+def clip_tp(tokens: np.ndarray):
+    """CLIP (seed 1) Megatron-sharded over the model axis of mesh (1, world):
+    ``encode_tokens`` of ``tokens``, and each attention's and MLP's layout."""
+    mesh = make_mesh(1, torch.distributed.get_world_size())
+    model = sharding.shard_module(tclip.init("cpu", seed=1).eval(), mesh)
+    layer = model.text_model.encoder.layers[0]
+    with torch.inference_mode():
+        out = tclip.encode_tokens(model, torch.from_numpy(tokens)).numpy()
+    return dict(out=out, heads=layer.self_attn.num_heads,
+                q_proj=type(layer.self_attn.q_proj).__name__, fc1=type(layer.mlp.fc1).__name__,
+                fc1_rows=layer.mlp.fc1.weight.shape[0])

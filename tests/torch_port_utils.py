@@ -5,6 +5,7 @@ small params."""
 
 import contextlib
 import gzip
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -61,6 +62,14 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """``tmp_path``, removed when the test ends, for a module that imports it: its
+    tests write checkpoint-size files, which pytest would keep for three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def write_merges(path) -> str:
@@ -331,3 +340,69 @@ def assert_int8_image(got, want):
           f"{np.abs(img.astype(int) - want_img.astype(int)).max()}")
     np.testing.assert_allclose(lat, want_lat, rtol=INT8_LATENT_TOL, atol=INT8_LATENT_TOL)
     assert np.abs(img.astype(int) - want_img.astype(int)).max() <= 1
+
+
+def to_jax_params(*modules) -> dict:
+    """The JAX package's flat params of the port's unfused ``modules``, merged
+    into one dict (a VAE's encoder and decoder make the JAX VAE's): conv kernels
+    HWIO, dense kernels ``(in, out)``, norm ``scale`` / ``bias``, ``embedding``
+    tables. :func:`from_jax` inverted, and checked by converting back."""
+    params = {}
+    for module in modules:
+        own = {}
+        for name, m in module.named_modules():
+            w = None if not hasattr(m, "weight") else m.weight.detach().numpy()
+            if isinstance(m, torch.nn.Conv2d):
+                own[name] = {"kernel": w.transpose(2, 3, 1, 0)}
+            elif isinstance(m, torch.nn.Linear):
+                own[name] = {"kernel": w.T}
+            elif isinstance(m, (torch.nn.GroupNorm, torch.nn.LayerNorm)):
+                own[name] = {"scale": w}
+            elif isinstance(m, torch.nn.Embedding):
+                own[name] = {"embedding": w}
+            else:
+                continue
+            if getattr(m, "bias", None) is not None:
+                own[name]["bias"] = m.bias.detach().numpy()
+        own = {k: {leaf: np.ascontiguousarray(v) for leaf, v in leaves.items()}
+               for k, leaves in own.items()}
+        back = from_jax(own, module)
+        assert all(torch.equal(back[k], v) for k, v in module.state_dict().items())
+        params.update(own)
+    return params
+
+
+def seeded_jax_params() -> dict:
+    """The JAX pipeline's params (``_unet_params``, ``_text_params``,
+    ``_vae_params``, ``_controlnet_params``) of ``torch_parallel_ranks.seeded_modules``."""
+    import torch_parallel_ranks
+
+    m = torch_parallel_ranks.seeded_modules()
+    return {"_unet_params": to_jax_params(m["_unet"]),
+            "_text_params": to_jax_params(m["_text_model"]),
+            "_vae_params": to_jax_params(m["_encoder"], m["_decoder"]),
+            "_controlnet_params": to_jax_params(m["_controlnet"])}
+
+
+def jax_mesh_pipeline(params: dict, bpe: str, size: int, data: int, model: int, **kw):
+    """The JAX pipeline on a (data, model) mesh of the first data * model virtual
+    devices, fp32, ``size`` x ``size``, holding ``params`` placed by the JAX
+    package's own rules: replicated under ``sequence_parallel``, else TP-sharded."""
+    from minsdtf_tpu.parallel import mesh as jmesh
+    from minsdtf_tpu.parallel import sharding as jsharding
+
+    mesh = jmesh.make_mesh(data=data, model=model, devices=jax.devices()[:data * model])
+    j = JaxStableDiffusion(size, size, compute_dtype=jnp.float32, bpe_path=bpe, mesh=mesh, **kw)
+    place = jsharding.replicate_params if j.sequence_parallel else jsharding.shard_params
+    for name, p in params.items():
+        setattr(j, name, place(p, mesh))
+    return j
+
+
+def jax_generate(j, method: str = "text_to_image", **kw):
+    """``(image, latent)`` of the JAX pipeline ``j``'s entry point ``method`` on
+    "hello world", 3 steps, seed 7: its ``generate_image`` with the entry points'
+    ``guidance_rescale=0.7``, since they return no latent."""
+    assert method in ("text_to_image", "image_to_image", "inpaint")
+    return j.generate_image(j._encode_text_dev("hello world"), guidance_rescale=0.7, num_steps=3,
+                            seed=7, return_latent=True, **kw)
