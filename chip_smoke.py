@@ -12,11 +12,28 @@ step (K1 at B = 1).
 
     python3 chip_smoke.py
 
+Every image goes through the pipeline's captured step program (``sampler``: the
+step's body and the decode as CUDA graphs, captured at a signature's first image
+and replayed); the mesh paths of group 12 run the step loop, the same body with
+nothing captured. Phase 5l holds the
+1024px program against the sampler's step loop (``sampler._generate_eager``)
+bit for bit, with the launch counts, and times three warm 1024px images through
+the loop. Phase 5k, after 5c-5j, holds the program against the loop bit for bit
+at 512x512 (txt2img, ControlNet, inpaint, TCD at batch 8, DPM++ 2M Karras), runs
+CFG 5.0 after 7.5 (no new capture, equal to the loop), prints each pipeline's
+programs (held, captured, capture seconds, replays, pool bytes) and times five
+warm 512px images through the loop, whose profiles (phases 7 and 7b) go to
+``profile_loop.txt`` and ``profile_1024_loop.txt``. Each phase's log line also gives the cold image's
+difference from the first warm one.
+
 After the checks it profiles one more warm image with ``torch.profiler`` at each
 size, with the ControlNet and of img2img, and one TCD batch of 8, and prints the
 device time by kernel group and the device's busy share (the full tables by
 kernel go to ``chiprun_out/chip_smoke/profile.txt``, ``profile_1024.txt``,
 ``profile_controlnet.txt``, ``profile_img2img.txt`` and ``profile_tcd_b8.txt``).
+In every profile (these, the serve burst's and int8's) the launch counters' change
+over the image must equal the K1, K2 and int8 kernels that the device ran, by
+name: a replay adds its capture's counts, and this holds them to the graphs.
 
 Then it loads weights from files written from the same seeds, under
 ``build/chip_smoke_ckpt/`` (removed at the end; about 5.8 GB of checkpoints and
@@ -94,7 +111,9 @@ launches on the main path, its error, its time and its bound. Kernel times (``ms
 are device times, from a CUDA graph of many calls; ``loop_ms`` is the per-call time
 of a plain loop of wrapper calls, host cost included. Phase 4 also prints the floor
 that the exponentials set on the special-function units, and does not time the
-plain version where its fp32 scores alone would exceed ``PLAIN_MAX_SCORE_BYTES``.
+plain version where its fp32 scores alone would exceed ``PLAIN_MAX_SCORE_BYTES``;
+phase 4f times the fp32 kernels at the 512px shapes, beside SDPA with TF32 off
+and the kernels it ran.
 Longer logs go to ``chiprun_out/chip_smoke/``.
 """
 
@@ -106,6 +125,7 @@ import copy
 import gzip
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -468,8 +488,8 @@ def phase_time(gen):
         exp_floor_ms = exp_floor(b, s, s, h)
         blocks = blocks_per_sm[name](d)
         timings.setdefault(name, []).append(dict(
-            shape=[b, s, h, d], ms=kernel_ms, loop_ms=loop_ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+            shape=[b, s, h, d], dtype="bfloat16", ms=kernel_ms, loop_ms=loop_ms,
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
         plain_txt = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
         log(f"phase 4 {name} B{b} S{s} H{h} D{d} bf16: kernel {kernel_ms:.4f} ms (graph), "
             f"{loop_ms:.4f} ms per call in a loop, plain {plain_txt}, sdpa {library_ms:.4f} ms "
@@ -478,6 +498,57 @@ def phase_time(gen):
             f"(share {exp_floor_ms / kernel_ms:.4f}), {blocks} blocks per SM (occupancy "
             f"calculator)")
     return timings
+
+
+def sdpa_kernels(fn) -> list:
+    """The device kernels one ``fn()`` call runs, by ``torch.profiler``, longest
+    first: which backend ``scaled_dot_product_attention`` picked."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from minsdtf_tpu_torch import profiling
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return list(profiling.op_report(prof, top=None))
+
+
+def phase_time_fp32(gen, timings: dict) -> None:
+    """4f: the fp32 kernels (K1's ``flash_onepass_kernel``, K2's
+    ``flash_online_kernel``) at the shapes of an fp32 512px image, which
+    ``tools.golden --audit`` runs: device time (a CUDA graph of 20 calls), the plain
+    version, SDPA with TF32 off and the kernels it ran, and the bound at the fp32
+    FMA peak. Appended to ``timings``."""
+    timed = [("onepass", 2, 4096, 8, 40), ("onepass", 2, 1024, 8, 80), ("online", 1, 4096, 1, 512)]
+    wrappers = _wrappers()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, b, s, h, d in timed:
+            layout = "fused_qkv" if d <= 160 else "contiguous"
+            q, k, v = qkv(b, s, s, h, d, torch.float32, gen, layout)
+            kern, plain = wrappers[name]
+            scale = d ** -0.5
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+            kernel_ms = time_ms(lambda: kern(q, k, v, scale), 20)
+            plain_ms = time_ms(lambda: plain(q, k, v, scale), 5, warmup=1)
+            library_ms = time_ms(sdpa, 20)
+            library_kernels = sdpa_kernels(sdpa)
+            bound_ms, bound_by = bound(b, s, s, h, d, torch.float32)
+            timings[name].append(dict(
+                shape=[b, s, h, d], dtype="float32", ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_kernels=library_kernels, bound_ms=bound_ms,
+                bound_by=bound_by))
+            log(f"phase 4f {name} B{b} S{s} H{h} D{d} fp32: kernel {kernel_ms:.4f} ms (graph), "
+                f"plain {plain_ms:.4f} ms, sdpa (TF32 off) {library_ms:.4f} ms running "
+                f"{[n[:90] for n in library_kernels]}, bound {bound_ms:.4f} ms ({bound_by}, "
+                f"fp32 FMA peak), share {bound_ms / kernel_ms:.4f}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
 def zero_launches():
@@ -500,7 +571,7 @@ def run_phase(label, generate, size, warm_images, expect, check=None, batch=1):
     makes ``batch`` images; its seconds per image are its wall time / ``batch``.
     Returns (passed, launches, warm seconds per image, peak GB)."""
     t0 = time.perf_counter()
-    generate()
+    cold = generate()
     torch.cuda.synchronize()
     log(f"{label} cold run: {time.perf_counter() - t0:.3f} s")
 
@@ -521,7 +592,8 @@ def run_phase(label, generate, size, warm_images, expect, check=None, batch=1):
     log(f"{label} warm {size}x{size}, batch {batch}: median {statistics.median(samples):.4f} "
         f"s/img of "
         f"{len(samples)} images {[round(t, 4) for t in samples]}, peak memory {peak_gb:.3f} GB "
-        f"({resident_gb:.3f} GB allocated before it), launches in the first {launches}")
+        f"({resident_gb:.3f} GB allocated before it), launches in the first {launches}; the "
+        f"cold image against the first warm one: max |diff| {pixel_diff(cold, image)[0]}")
     checks = {
         f"image ({batch}, {size}, {size}, 3) uint8": image.shape == (batch, size, size, 3)
         and str(image.dtype) == "uint8",
@@ -699,11 +771,117 @@ def phase_samplers(pipe, size: int, directory: str):
         sd = with_settings(pipe, **settings)
         generate = (lambda sd=sd, prompt=prompt, kw=kw, **extra: sd.text_to_image(
             prompt, unconditional_guidance_scale=7.5, seed=1234, **kw, **extra))
+        generate.pipe = sd
         results[path] = (*run_phase(label, generate, size, WARM_IMAGES_SAMPLERS, expect, check,
                                     batch=kw.get("batch_size", 1)), generate)
         if not results[path][0]:
             return None
     return results
+
+
+@contextlib.contextmanager
+def step_loop():
+    """In the body, the pipelines run the sampler's step loop
+    (``sampler._generate_eager``, the reference the card's captured program is held
+    against) in place of the program."""
+    from minsdtf_tpu_torch import sampler
+
+    program = sampler.generate
+    sampler.generate = lambda *args, programs=None, **kw: sampler._generate_eager(*args, **kw)
+    try:
+        yield
+    finally:
+        sampler.generate = program
+
+
+def program_against_loop(label: str, generate, **kw) -> dict:
+    """One warm call of ``generate(return_latent=True, **kw)`` through the captured
+    program and one through the step loop: their uint8 images and latents must be
+    equal bit for bit and their launch counts equal."""
+    runs = []
+    for loop in (False, True):
+        zero_launches()
+        with step_loop() if loop else contextlib.nullcontext():
+            image, latent = generate(return_latent=True, **kw)
+        torch.cuda.synchronize()
+        runs.append((image, latent, read_launches()))
+    (img_p, lat_p, n_p), (img_l, lat_l, n_l) = runs
+    out = dict(image_equal=bool(np.array_equal(img_p, img_l)),
+               latent_equal=bool(np.array_equal(lat_p, lat_l)),
+               image_max_diff=pixel_diff(img_p, img_l)[0],
+               latent_max_diff=float(np.abs(lat_p - lat_l).max()), launches=n_p,
+               launches_loop=n_l)
+    out["ok"] = out["image_equal"] and out["latent_equal"] and n_p == n_l
+    log(f"{label} program against the step loop: image equal {out['image_equal']} (max |diff| "
+        f"{out['image_max_diff']}), latent equal {out['latent_equal']} (max |diff| "
+        f"{out['latent_max_diff']:.3e}), launches {n_p} and {n_l} {'ok' if out['ok'] else 'FAIL'}")
+    return out
+
+
+def program_stats(label: str, pipe) -> dict:
+    """``pipe``'s program cache: programs held and captured, the pool's bytes, each
+    program's capture seconds and replays."""
+    stats = pipe._programs.stats()
+    pool = stats["pool_bytes"]
+    log(f"{label} programs: {stats['programs']} held, {stats['builds']} captured, pool "
+        f"{'not measured' if pool is None else f'{pool / 1e6:.1f} MB'}; each (capture s, "
+        f"replays): {[(round(p['capture_s'], 3), p['replays']) for p in stats['each']]}")
+    return stats
+
+
+def phase_program(pipe, new_paths: dict, samplers: dict):
+    """5k: the captured step program against the sampler's step loop at full
+    width, 512x512, bf16, on phase 5's modules, bit for bit: txt2img (phase 5's
+    settings), ControlNet, inpaint (strength 0.8), TCD at batch 8 (step noise) and
+    DPM++ 2M Karras (the x0 carry); then CFG 5.0 after 7.5, which must reuse the
+    program (no capture) and equal the loop at 5.0; then each pipeline's programs,
+    capture seconds, replays and pool bytes, and five warm images through the
+    loop, timed. Returns the numbers, or None if a check failed."""
+    runs = {"txt2img": txt2img(pipe), "controlnet": new_paths["controlnet"][-1],
+            "inpaint": new_paths["inpaint"][-1], "tcd_b8": samplers["tcd_b8"][-1],
+            "dpm_karras": samplers["dpm_karras"][-1]}
+    out = {path: program_against_loop(f"phase 5k {path}", generate)
+           for path, generate in runs.items()}
+    builds = pipe._programs.builds
+    out["cfg5"] = program_against_loop("phase 5k txt2img at CFG 5.0", lambda **kw: pipe.text_to_image(
+        PROMPT, num_steps=25, unconditional_guidance_scale=5.0, seed=1234, **kw))
+    out["cfg5"]["captures"] = pipe._programs.builds - builds
+    out["cfg5"]["ok"] &= out["cfg5"]["captures"] == 0
+    log(f"phase 5k CFG 5.0 after 7.5: {out['cfg5']['captures']} new captures (want 0)")
+    out["programs"] = {"phase 5": program_stats("phase 5k phase 5's pipeline", pipe),
+                       **{path: program_stats(f"phase 5k {path}'s pipeline", r[-1].pipe)
+                          for path, r in samplers.items()}}
+    ok = all(r["ok"] for r in out.values() if "ok" in r)
+    with step_loop():
+        loop_ok, _, out["loop_samples"], _ = run_phase(
+            "phase 5k step loop txt2img", txt2img(pipe), 512, WARM_IMAGES,
+            {"onepass": 250, "online": 1})
+    return out if ok and loop_ok else None
+
+
+# each wrapper call runs one of these kernels (K2's path B also its merge, not counted)
+DEVICE_KERNELS = {
+    "onepass": re.compile(r"flash_bf16_kernel<\d+, 0>|flash_onepass_kernel\("),  # EXP2_ROUNDED_SUM
+    "online": re.compile(r"flash_bf16_kernel<\d+, 1>|flash_online_d512_kernel\("
+                         r"|flash_online_kernel\("),
+}
+
+
+def read_counters() -> dict:
+    """Every launch counter: K1's and K2's, and the int8 products."""
+    from minsdtf_tpu_torch.ops import basic
+
+    return {**read_launches(), "int8": basic.int8_matmul.calls}
+
+
+def device_launches(by_name: dict, groups: dict) -> dict:
+    """The counters' launches as the device ran them in a profile: K1's and K2's
+    by kernel name (``DEVICE_KERNELS``), the int8 products as the kernels of the
+    "int8 gemm" group, one each."""
+    out = {key: sum(n for name, (_, n) in by_name.items() if pattern.search(name))
+           for key, pattern in DEVICE_KERNELS.items()}
+    out["int8"] = groups.get("int8 gemm", (0.0, 0))[1]
+    return out
 
 
 def phase_profile(generate, s_per_img: float, label: str, filename: str,
@@ -712,26 +890,37 @@ def phase_profile(generate, s_per_img: float, label: str, filename: str,
     kernel name and by group (``profiling.op_report``), and the device's busy share
     of the unprofiled wall time ``s_per_img``. Only CUDA activity is recorded: the
     host's events cost most of the profiler's processing time and no number here
-    reads them. Returns the busy share, or None where the profiler recorded no
-    device time; ``details``, if given, gets ``busy_ms``, ``groups`` and
-    ``by_name`` ({key: (ms, launches)})."""
+    reads them. The launch counters' change over the image must equal the kernels
+    the device ran (:func:`device_launches`): a replayed program adds its capture's
+    counts, so this holds them to the graph's kernels; a difference raises. Returns
+    the busy share, or None where the profiler recorded no device time;
+    ``details``, if given, gets ``busy_ms``, ``groups``, ``by_name`` ({key: (ms,
+    launches)}) and ``launches``."""
     from torch.profiler import ProfilerActivity, profile
 
     from minsdtf_tpu_torch import profiling
 
+    before = read_counters()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         generate()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = {k: v - before[k] for k, v in read_counters().items()}
     by_name = profiling.op_report(prof, top=None)
     busy_ms = sum(t for t, _ in by_name.values())
     if busy_ms == 0:
         log(f"{label} profile: the profiler recorded no device time (not measured)")
         return None
     groups = profiling.op_report(prof, by="group", top=None)
+    on_device = device_launches(by_name, groups)
+    log(f"{label} profile: launches counted {counted}, run on the device {on_device} "
+        f"{'ok' if counted == on_device else 'FAIL'}")
+    if counted != on_device:
+        raise RuntimeError(f"{label}: the launch counters {counted} differ from the kernels "
+                           f"the device ran {on_device}")
     if details is not None:
-        details.update(busy_ms=busy_ms, groups=groups, by_name=by_name)
+        details.update(busy_ms=busy_ms, groups=groups, by_name=by_name, launches=on_device)
     with open(os.path.join(OUT_DIR, filename), "w") as f:
         f.write(f"device busy {busy_ms:.3f} ms, profiled wall {wall_ms:.3f} ms\n")
         for name, (t, n) in by_name.items():
@@ -1058,16 +1247,20 @@ def phase_lora(pipe, bpe: str, directory: str, path: str, want_images):
     numbers = {"lora_first_image_s": first_s}
     checks = {}
     for scale in (0.5, None):
+        builds = lpipe._programs.builds
         t0 = time.perf_counter()
         lpipe.set_lora(None if scale is None else lora_path, **({} if scale is None
                                                                else {"scale": scale}))
         set_s = time.perf_counter() - t0
+        held = len(lpipe._programs.programs)
         t0 = time.perf_counter()
         image = txt2img(lpipe)()
         torch.cuda.synchronize()
         image_s = time.perf_counter() - t0
         label = "none" if scale is None else str(scale)
         numbers[f"set_lora_{label}_s"], numbers[f"set_lora_{label}_first_image_s"] = set_s, image_s
+        checks[f"set_lora({label}) drops the programs; the next image captures anew"] = (
+            held == 0 and lpipe._programs.builds == builds + 1)
         log(f"phase 8c set_lora({'None' if scale is None else f'path, {scale}'}): {set_s:.3f} s, "
             f"then {image_s:.3f} s to the first image")
         if scale is None:
@@ -1765,7 +1958,8 @@ def record_int8_shapes(generate) -> tuple:
 
     basic.int8_conv_acc, basic._rescale = conv, rescale_dense
     try:
-        generate()
+        with step_loop():  # a replay runs no Python to record
+            generate()
         torch.cuda.synchronize()
     finally:
         basic.int8_conv_acc, basic._rescale = conv_acc, rescale
@@ -2000,7 +2194,8 @@ def phase_int8_small(bpe: str) -> bool:
         replay = RoundingReplay()
         with replay.recording():
             want = cpu_run()
-        with replay.replaying():
+        # the replay reads each activation back to the host: the step loop's work
+        with replay.replaying(), step_loop():
             got = card_run()
         return got, want, replay
 
@@ -2602,6 +2797,7 @@ def main() -> int:
     if errors is None:
         return 1
     timings = phase_time(torch.Generator(device="cuda").manual_seed(0))
+    phase_time_fp32(torch.Generator(device="cuda").manual_seed(0), timings)
     mark("phases 1-4")
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         bpe = synthetic_merges(tmp)
@@ -2614,8 +2810,20 @@ def main() -> int:
             bpe, 1024, WARM_IMAGES_1024, {"onepass": 250, "online": 126}, "phase 5b")
         if not ok:
             return 1
+        # 5l: the 1024px program against the step loop, and the loop timed
+        program_1024 = program_against_loop("phase 5l 1024px", txt2img(pipe_1024))
+        with step_loop():
+            ok, _, loop_samples_1024, _ = run_phase(
+                "phase 5l step loop 1024px", txt2img(pipe_1024), 1024, WARM_IMAGES_1024,
+                {"onepass": 250, "online": 126})
+        program_1024["stats"] = program_stats("phase 5l 1024px pipeline", pipe_1024)
+        if not (ok and program_1024["ok"]):
+            return 1
         phase_profile(txt2img(pipe_1024), statistics.median(samples_1024), "phase 7b 1024px",
                       "profile_1024.txt")
+        with step_loop():
+            phase_profile(txt2img(pipe_1024), statistics.median(loop_samples_1024),
+                          "phase 7b step loop 1024px", "profile_1024_loop.txt")
         image_1024 = txt2img(pipe_1024)()  # 12d's single-device reference
         del pipe_1024  # the later phases' peak memory holds only the 512px pipeline
         torch.cuda.empty_cache()
@@ -2628,6 +2836,11 @@ def main() -> int:
         if new_paths is None:
             return 1
         mark("phases 5c-5e")
+        program = phase_program(pipe, new_paths, samplers)
+        if program is None:
+            return 1
+        program.update(samples_1024=loop_samples_1024, at_1024=program_1024)
+        mark("phase 5k")
         if not small_reference_check(bpe, tmp):
             return 1
         if not phase_t999(bpe):
@@ -2636,6 +2849,9 @@ def main() -> int:
         s_per_img = statistics.median(samples)
         phase7 = {}
         phase_profile(txt2img(pipe), s_per_img, "phase 7", "profile.txt", details=phase7)
+        with step_loop():
+            phase_profile(txt2img(pipe), statistics.median(program["loop_samples"]),
+                          "phase 7 step loop", "profile_loop.txt")
         for path, label in (("controlnet", "phase 7c ControlNet"), ("img2img", "phase 7d img2img")):
             _, _, warm, _, generate = new_paths[path]
             phase_profile(generate, statistics.median(warm), label, f"profile_{path}.txt")
@@ -2711,7 +2927,8 @@ def main() -> int:
                       for key, value in (("s_per_img", statistics.median(warm)),
                                          ("s_per_img_samples", warm), ("peak_gb", peak))},
                    "checkpoints": ckpt_numbers, "serving": serving, "training": training,
-                   "int8": int8_results, "mesh": mesh_results, "kernels": rows}, f, indent=1)
+                   "int8": int8_results, "mesh": mesh_results, "program": program,
+                   "kernels": rows}, f, indent=1)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -80,6 +80,13 @@ def sequence_parallel_key():
     return (axis_name, min_seq, tuple(zip(mesh.mesh_dim_names, mesh.shape)))
 
 
+def route_key():
+    """This thread's attention route: whether :func:`plain_scope` holds, and
+    :func:`sequence_parallel_key`. A captured program replays the route it was
+    captured under, so the sampler's program cache keys on it."""
+    return _PLAIN.get(), sequence_parallel_key()
+
+
 def sp_shardable(tokens: int):
     """``(mesh, axis_name, n)`` when this thread's SP setting shards a
     ``tokens``-long axis over n ranks (n > 1, ``tokens >= min_seq``, n divides

@@ -7,8 +7,9 @@ Spawns n ranks (``gloo``; by default every rank on the current CUDA card, with
 ``--device cpu`` on the CPU) on ``model = 2`` when n is even, else 1, and runs:
 
 1. the train step under DP x TP (UNet widths (32, 64, 128, 128), fp32);
-2. the serving sampler, ``sampler.generate`` with CFG and the VAE decode, under
-   the same DP x TP sharding;
+2. the serving sampler with CFG and the VAE decode, under the same DP x TP
+   sharding: its step loop (``sampler._generate_eager``), as the pipeline runs
+   it on a mesh;
 3. sequence-parallel generation (when model > 1): spatial SP over the model axis
    at a 16x16 latent with ``min_seq=256``, weights whole: the UNet's level 0 and
    every level of the decoder H-sharded, halo-row convs, GroupNorm over the
@@ -69,8 +70,8 @@ def _rank(n: int, model: int, device: str) -> list:
                          for shape in ((batch_b, 8, 8, 4), (batch_b, 77, 768),
                                        (batch_b, 77, 768)))
 
-    def serve(u, d, l0, c, uc):
-        return sampler.generate(u, d, l0, c, uc, t_embs, schedule.rows, 7.5, 0.7)
+    def serve(u, d, l0, c, uc):  # the step loop: a mesh's collectives cannot be captured
+        return sampler._generate_eager(u, d, l0, c, uc, t_embs, schedule.rows, 7.5, 0.7)
 
     sharded_unet = sharding.shard_module(unet, mesh)
     sharded_decoder = sharding.shard_module(decoder, mesh)

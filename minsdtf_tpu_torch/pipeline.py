@@ -61,6 +61,15 @@ tokens or more (read at construction, default 16384: the 1024px latent) stays
 H-sharded (:mod:`parallel.spatial`), with its self-attentions on the ring.
 ``weight_dtype`` and ``mesh`` together raise ``ValueError``, as in the JAX pipeline.
 
+On the card the step loop runs as captured programs (:mod:`sampler`), held in
+``_programs``, one for each static signature (batch, context lengths, mode, flags,
+modules): a signature's first image captures it, later images replay it. Replacing
+a module (:meth:`set_lora`, :meth:`calibrate_int8`, a lazy load after either)
+empties the cache, since a graph replays the weights it captured. Under ``mesh`` or
+``sequence_parallel`` the sampler runs its step loop (``sampler._generate_eager``):
+gloo stages each collective through host memory, which a graph cannot hold. That
+route is the configuration's, not a fallback.
+
 The reference-compatible handles (``diffusion_model``, ``text_clip_embedding``,
 ``text_encoder``, ``image_encoder``, ``image_decoder``, ``hint_net``,
 ``control_net``) take and return numpy arrays in the JAX package's layouts (NHWC
@@ -72,6 +81,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import os
 from typing import Callable, List, Optional, Sequence, Union
 
@@ -241,6 +251,7 @@ class StableDiffusion:
         self._prompt_cache = {}
         # (num_steps, strength, eta) -> (DenoiseSchedule, t_embs on the device)
         self._schedule_cache = {}
+        self._programs = sampler.ProgramCache()  # the card's captured step loops
         if lora_path is not None:
             self.set_lora(lora_path)
 
@@ -260,6 +271,7 @@ class StableDiffusion:
                                      f"no {kind} checkpoint to merge them into")
         self.text_encoder_lora, self.unet_lora = te or None, unet or None  # {} merges nothing
         self._unet = None
+        self._programs.clear()
         self._text_model = None
         self._uncond = None
         self._prompt_cache.clear()
@@ -338,6 +350,7 @@ class StableDiffusion:
     @property
     def unet(self) -> unet_lib.UNet:
         if self._unet is None:
+            self._programs.clear()
             self._unet = self._load_or_init(self.unet_ckpt, "unet", unet_lib.UNet, 0,
                                             lora=self.unet_lora, fuse=self.mesh is None,
                                             quantize_fn=self._quantize_unet)
@@ -354,6 +367,7 @@ class StableDiffusion:
     @property
     def decoder(self) -> vae_lib.VAEDecoder:
         if self._decoder is None:
+            self._programs.clear()
             self._decoder = self._load_or_init(self.vae_ckpt, "vae", vae_lib.VAEDecoder, 2, part=1)
         return self._placed("_decoder")
 
@@ -369,6 +383,7 @@ class StableDiffusion:
         under ``weight_dtype="int8"`` made int8 at every eligible site), or the one
         assigned to ``_controlnet``, or None."""
         if self._controlnet is None and self.controlnet_path is not None:
+            self._programs.clear()
             self._controlnet = self._load_or_init(
                 self.controlnet_path, "controlnet", controlnet_lib.ControlNet, 3,
                 fuse=self.mesh is None,
@@ -702,11 +717,14 @@ class StableDiffusion:
         if schedule.mode in sampler.NOISY_MODES or (schedule.mode == "tcd" and eta > 0.0):
             step_noise = draw_step_noise(key_seed, (schedule.num_steps, *latent0.shape))
             step_noise = rows(to_device(step_noise, self.device), 1)
+        # a mesh's collectives cannot be captured: it runs the step loop
+        loop = (functools.partial(sampler.generate, programs=self._programs)
+                if self.mesh is None else sampler._generate_eager)
         with self._sp_scope():
-            image, latent, *trajectory = sampler.generate(
+            image, latent, *trajectory = loop(
                 self.unet, self.decoder, rows(latent0), rows(context),
                 None if uncond is None else rows(uncond), t_embs, schedule.rows,
-                float(unconditional_guidance_scale), float(guidance_rescale),
+                unconditional_guidance_scale, guidance_rescale,
                 controlnet=self.controlnet if hint is not None else None, hint=hint,
                 inpaint=inpaint, callback=callback, mode=schedule.mode,
                 step_noise=step_noise, v_prediction=self.prediction_type == "v",
@@ -771,6 +789,7 @@ class StableDiffusion:
                 guidance_rescale=guidance_rescale)
             calibrate.merge_stats(amax, got)
         del calib_unet
+        self._programs.clear()  # the sites' scales change in place, or the UNet is new
         if self.weight_dtype == "int8_hybrid":
             self._unet = quantize.hybridize_params(
                 self.unet, amax, margin=margin, dense_dynamic=self._hybrid_dense,

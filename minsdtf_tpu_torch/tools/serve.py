@@ -12,7 +12,10 @@ Design (one card = one worker; standard library only):
   - a single worker thread, the only thread that touches the card, pulls
     requests, dispatches them without fetching, and keeps a deque of
     ``pipeline_depth`` in-flight handles; request *i*'s image is fetched once
-    *i + 1* is queued.
+    *i + 1* is queued. The handlers only decode JSON and queue, so no upload or
+    allocation on the card runs beside a capture of the sampler's step program
+    (which the worker makes at a batch size's first request); the capture's
+    ``thread_local`` error mode would let another thread's card work pass too.
   - concurrently queued requests with matching (steps, guidance, rescale,
     negative prompt) MERGE into one batched call of up to ``max_batch``:
     contexts stack on the sampler's batch axis, and each request's seed makes its

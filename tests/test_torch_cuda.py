@@ -553,3 +553,126 @@ def test_int8_unet_runs_on_the_card_and_launches_k1(cuda):
     assert tbasic.int8_matmul.calls - calls == len(sites) > 0
     assert out.shape == (2, 32, 32, 4) and bool(torch.isfinite(out).all())
 
+
+
+# ---- the step loop as a captured program -------------------------------------------
+
+PROGRAM_CASES = ("ddim", "dpm", "euler_a", "tcd_inpaint", "two_calls_int8")
+
+
+def _program_setup(device, case: str):
+    """Small bf16 modules on ``device`` and one call's arguments for ``case``: batch
+    2 under CFG, 3 steps, a 32x32 latent (K1 at the UNet's level 0), the decoder at
+    (192, 64, 32, 32) (K2 path B in its mid block); "two_calls_int8" has a 154-token
+    negative context and an int8 UNet."""
+    from minsdtf_tpu_torch import sampler as tsampler
+    from minsdtf_tpu_torch import scheduler as tsched
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.models import vae as vae_lib
+    from minsdtf_tpu_torch.models.common import cast_weights_
+    from minsdtf_tpu_torch.weights import quantize
+
+    unet = unet_lib.fuse_attention_projections(
+        unet_lib.init("cpu", seed=0, widths=(320, 64, 128, 128), temb_dim=128))
+    if case == "two_calls_int8":
+        unet = quantize.quantize_params(unet)
+    unet = cast_weights_(unet, torch.bfloat16).to(device).eval()
+    decoder = cast_weights_(vae_lib.init_decoder("cpu", seed=2, dec_widths=(192, 64, 32, 32)),
+                            torch.bfloat16).to(device).eval()
+    mode = {"tcd_inpaint": "tcd", "two_calls_int8": "ddim"}.get(case, case)
+    schedule = tsched.build_denoise_schedule(tsched.make_scheduler(mode), 3, eta=0.3)
+    gen = torch.Generator().manual_seed(3)
+    latent0 = torch.randn(2, 32, 32, 4, generator=gen)
+    ctx = torch.randn(2, 77, 768, generator=gen)
+    unc = torch.randn(1, 154 if case == "two_calls_int8" else 77, 768, generator=gen)
+    kw = dict(mode=schedule.mode)
+    if case in ("euler_a", "tcd_inpaint"):
+        kw["step_noise"] = torch.randn(3, 2, 32, 32, 4, generator=gen).to(device)
+    if case == "tcd_inpaint":
+        kw["inpaint"] = tsampler.Inpaint(  # the reference latent NCHW in memory, as the encoder's
+            torch.randn(1, 4, 32, 32, generator=gen).to(device).permute(0, 2, 3, 1),
+            torch.randn(2, 32, 32, 4, generator=gen).to(device),
+            (torch.rand(1, 32, 32, 1, generator=gen) > 0.5).float().to(device),
+            torch.rand(1, 256, 256, 3, generator=gen).to(device),
+            (torch.rand(1, 256, 256, 1, generator=gen) > 0.5).float().to(device))
+    t_embs = torch.from_numpy(tsched.timestep_embedding(schedule.timesteps)).to(device)
+    args = (unet, decoder, latent0.to(device, torch.bfloat16), ctx.to(device), unc.to(device),
+            t_embs, schedule.rows)
+    return args, kw
+
+
+def _counted(fn):
+    """``(fn()'s output synchronised, each launch counter's change)``."""
+    from minsdtf_tpu_torch import sampler as tsampler
+
+    before = tsampler._counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [a - b for a, b in zip(tsampler._counts(), before)]
+
+
+@pytest.mark.parametrize("case", PROGRAM_CASES)
+def test_program_equals_the_step_loop_bit_for_bit(cuda, case):
+    """The captured program's first call (step 0 and the decode eager, then
+    captured) and its second (every step replayed) give the step loop's image and
+    latent bit for bit, and move every launch counter as the loop does."""
+    from minsdtf_tpu_torch import sampler as tsampler
+
+    args, kw = _program_setup(cuda, case)
+    (want_img, want_lat), want_counts = _counted(
+        lambda: tsampler._generate_eager(*args, 7.5, 0.7, **kw))
+    assert want_counts[0] > 0 and want_counts[1] > 0
+    assert (want_counts[2] > 0) == (case == "two_calls_int8")
+    programs = tsampler.ProgramCache()
+    for call in ("capture", "replay"):
+        (img, lat), counts = _counted(
+            lambda: tsampler.generate(*args, 7.5, 0.7, programs=programs, **kw))
+        assert torch.equal(img, want_img), (call, int((img.int() - want_img.int()).abs().max()))
+        assert torch.equal(lat, want_lat), call
+        assert counts == want_counts, (call, counts, want_counts)
+    stats = programs.stats()
+    assert stats["builds"] == 1 and stats["programs"] == 1
+    # the first call replays steps 1 and 2, the second every step and the decode
+    assert stats["each"][0]["replays"] == 2 + 4 and stats["each"][0]["capture_s"] > 0
+    assert stats["pool_bytes"] is None or stats["pool_bytes"] > 0
+
+
+def test_a_new_guidance_value_reuses_the_program(cuda):
+    from minsdtf_tpu_torch import sampler as tsampler
+
+    args, kw = _program_setup(cuda, "ddim")
+    programs = tsampler.ProgramCache()
+    for scale, rescale in ((7.5, 0.7), (5.0, 0.251953125)):  # 1 - 0.251953125 is not bf16
+        img, lat = tsampler.generate(*args, scale, rescale, programs=programs, **kw)
+        want_img, want_lat = tsampler._generate_eager(*args, scale, rescale, **kw)
+        assert torch.equal(img, want_img) and torch.equal(lat, want_lat), scale
+    assert programs.builds == 1
+
+
+class _SyncingUNet(torch.nn.Module):
+    """A UNet that reads a value back to the host in its forward, which a capture
+    cannot hold."""
+
+    def __init__(self, unet):
+        super().__init__()
+        self.unet = unet
+
+    def forward(self, latent, t_emb, context, controls=None):
+        if float(latent.float().abs().sum()) < 0:
+            raise AssertionError("unreachable")
+        return self.unet(latent, t_emb, context, controls)
+
+
+def test_a_failing_capture_raises_and_keeps_no_program(cuda):
+    from minsdtf_tpu_torch import sampler as tsampler
+
+    (unet, *rest), kw = _program_setup(cuda, "ddim")
+    programs = tsampler.ProgramCache()
+    with pytest.raises(RuntimeError):
+        tsampler.generate(_SyncingUNet(unet), *rest, 7.5, 0.7, programs=programs, **kw)
+    torch.cuda.synchronize()
+    assert len(programs.programs) == 0
+    # the card still runs programs afterwards
+    img, lat = tsampler.generate(unet, *rest, 7.5, 0.7, programs=programs, **kw)
+    want_img, want_lat = tsampler._generate_eager(unet, *rest, 7.5, 0.7, **kw)
+    assert torch.equal(img, want_img) and torch.equal(lat, want_lat)
