@@ -11,11 +11,12 @@ calls), and runs DIR's txt2img at 1024x1024 and 512x512 (25 steps, CFG 7.5, bf16
 one cold image and WARM warm ones), printing the median s/img of each. Run it on
 two checkouts in one call, in turns (A, B, B, A), to compare them on one card.
 
-``mutants`` builds two broken copies of ``csrc/flash_attention.cu`` under
-``build/mutants/``, each with one of K2's bf16 paths skipping its last KV tile
-(path A: d <= 160, path B: d = 512), and runs every phase-3 K2 case of that path
-against the mutant with ``chip_smoke.py``'s inputs and limits. Each case must
-fail; the run exits 1 if one passes.
+``mutants`` builds broken copies of ``csrc/flash_attention.cu`` under
+``build/mutants/``, each with one kernel skipping its last KV tile: K2's bf16 path
+A (d <= 160) and path B (d = 512), K1's fp32 kernel, K2's fp32 body (d <= 192)
+and its d = 512 kernel. It runs every phase-3 case of that kernel against the
+mutant with ``chip_smoke.py``'s inputs and limits. Each case must fail; the run
+exits 1 if one passes.
 
 ``seeds`` runs every phase-3 case with its inputs drawn from SEEDS other base
 seeds (``chip_smoke.check_case``); the run exits 1 if a case fails at any.
@@ -39,14 +40,27 @@ import chip_smoke as cs  # noqa: E402
 
 WARM = 3
 SEEDS = range(1, 9)
-# Inserted at the top of each path's KV loop body, after the next tile's loads are
-# issued: the mutant computes nothing for the last tile. The text before which it
-# goes must be in the source once; the run stops if it is not.
+# Inserted at the top of each kernel's KV loop body, after the next tile's loads
+# are issued: the mutant computes nothing for the last tile. The text before which
+# it goes must be in the source once; the run stops if it is not. Each mutant
+# names the phase-3 cases it must fail: (kernel, dtype, the head width the
+# wrapper runs the case at).
 MUTANTS = {
     "A": ("    const uint32_t kb = smem_u32(sK + (it % STAGES) * T::KV_BYTES);\n",
-          "    if (MODE == EXP_FP32_SUM && it == ntiles - 1) continue;\n"),
+          "    if (MODE == EXP_FP32_SUM && it == ntiles - 1) continue;\n",
+          lambda name, dtype, width: name == "online" and dtype == torch.bfloat16 and width <= 160),
     "B": ("    const uint32_t kb = smem_u32(sK + (it % STAGES) * W::K_BYTES);\n",
-          "    if (tile_of(it) == (p.Sk + BK - 1) / BK - 1) continue;\n"),
+          "    if (tile_of(it) == (p.Sk + BK - 1) / BK - 1) continue;\n",
+          lambda name, dtype, width: name == "online" and dtype == torch.bfloat16 and width == 512),
+    "F1": ("    const float* kt = sK + (it % T::STAGES) * T::K_FLOATS + cg * KS;\n",
+           "    if (MODE == EXP2_ROUNDED_SUM && it == ntiles - 1) continue;\n",
+           lambda name, dtype, width: name == "onepass" and dtype == torch.float32),
+    "F2": ("    const float* kt = sK + (it % T::STAGES) * T::K_FLOATS + cg * KS;\n",
+           "    if (MODE == EXP_FP32_SUM && it == ntiles - 1) continue;\n",
+           lambda name, dtype, width: name == "online" and dtype == torch.float32 and width <= 192),
+    "F3": ("    const float* kt = sK + (it % W::STAGES) * W::KV_FLOATS + 4 * lane;\n",
+           "    if (it == ntiles - 1) continue;\n",
+           lambda name, dtype, width: name == "online" and dtype == torch.float32 and width == 512),
 }
 
 
@@ -101,7 +115,7 @@ def build_mutants(out_dir: str) -> dict:
     src = open(os.path.join(kernels.CSRC, "flash_attention.cu")).read()
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for path, (anchor, skip) in MUTANTS.items():
+    for path, (anchor, skip, _) in MUTANTS.items():
         if src.count(anchor) != 1:
             raise RuntimeError(f"mutant {path}: its anchor is not in the source once: {anchor!r}")
         cu = os.path.join(out_dir, f"mutant_{path}.cu")
@@ -129,14 +143,14 @@ def run_mutants() -> int:
         fa._LIB = lib
         for case in cs.CASES:
             name, d, dtype = case[0], case[5], case[6]
-            if name != "online" or dtype != torch.bfloat16 or (d <= 160) != (path == "A"):
+            if not MUTANTS[path][2](name, dtype, fa.kernel_width(name, dtype, d)):
                 continue
             ok, err, line = cs.check_case(case)
             log(f"mutant {path} (skips its last KV tile): {line}")
             if ok:
                 passed.append((path, case[1:6], case[7]))
     fa._LIB = None
-    log(f"mutants: {'every K2 case failed' if not passed else f'PASSED (not caught): {passed}'}")
+    log(f"mutants: {'every case failed' if not passed else f'PASSED (not caught): {passed}'}")
     return 1 if passed else 0
 
 

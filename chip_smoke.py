@@ -112,8 +112,13 @@ are device times, from a CUDA graph of many calls; ``loop_ms`` is the per-call t
 of a plain loop of wrapper calls, host cost included. Phase 4 also prints the floor
 that the exponentials set on the special-function units, and does not time the
 plain version where its fp32 scores alone would exceed ``PLAIN_MAX_SCORE_BYTES``;
-phase 4f times the fp32 kernels at the 512px shapes, beside SDPA with TF32 off
-and the kernels it ran.
+phase 4f times the fp32 kernels at the shapes of fp32 512px and 1024px images,
+beside SDPA with TF32 off and the kernels it ran.
+
+Phase 5m, before phase 5, drives the fp32 path: one full-width fp32 txt2img at
+512x512 (25 steps, CFG 7.5, through the captured program, TF32 off; K1 250, K2 1
+on the fp32 kernels), and one fp32 UNet call at that shape with the kernels
+against the same call under ``plain_scope()``.
 Longer logs go to ``chiprun_out/chip_smoke/``.
 """
 
@@ -174,10 +179,8 @@ CASES = [
     ("onepass", 1, 1000, 777, 2, 40, bf16, "odd_stride"),    # copied to 16-byte rows
     ("onepass", 2, 4096, 4096, 8, 40, bf16, "adversarial"),
     ("onepass", 2, 1024, 1024, 8, 80, bf16, "adversarial"),
-    ("onepass", 1, 1024, 1024, 2, 160, f32, "contiguous"),
     ("online", 1, 4096, 4096, 1, 512, bf16, "contiguous"),   # path B: the VAE mid-block
     ("online", 1, 1000, 1000, 1, 512, bf16, "contiguous"),   # path B, ragged q and KV tiles
-    ("online", 1, 512, 600, 1, 512, f32, "contiguous"),
     ("online", 1, 1024, 5000, 2, 40, bf16, "contiguous"),    # path A
     ("online", 1, 16384, 16384, 2, 40, bf16, "fused_qkv"),   # path A: the 1024px level 0
     ("online", 2, 16384, 16384, 8, 40, bf16, "fused_qkv"),   # path A at the level's shape
@@ -219,7 +222,38 @@ TP_CASES = [
     ("onepass", 2, 1024, 1024, 2, 80, bf16, "contiguous"),
     ("onepass", 2, 4096, 4096, 4, 40, bf16, "adversarial"),
 ]
-CASES += BATCH_CASES + SERVE_CASES + TP_CASES
+# The fp32 kernels: the shapes of an fp32 512px image (the first of each kernel is
+# the fp32 path's), ragged q and KV tiles, the padded copy, K2's fp32 body past
+# 4096 keys and its d = 192 and d = 512 kernels.
+F32_CASES = [
+    ("onepass", 2, 4096, 4096, 8, 40, f32, "fused_qkv"),
+    ("onepass", 2, 1024, 1024, 8, 80, f32, "fused_qkv"),
+    ("onepass", 1, 1000, 777, 2, 40, f32, "contiguous"),     # ragged q and KV tiles
+    ("onepass", 1, 1000, 4095, 2, 40, f32, "contiguous"),
+    ("onepass", 1, 1000, 777, 2, 80, f32, "contiguous"),
+    ("onepass", 1, 1000, 4095, 2, 80, f32, "contiguous"),
+    ("onepass", 1, 1000, 777, 2, 160, f32, "contiguous"),
+    ("onepass", 1, 1000, 4095, 2, 160, f32, "contiguous"),
+    ("onepass", 2, 1024, 1024, 8, 160, f32, "fused_qkv"),   # the 1024px level
+    ("onepass", 1, 1000, 777, 2, 36, f32, "contiguous"),     # zero-padded to 40
+    ("onepass", 1, 1000, 777, 2, 40, f32, "odd_stride"),     # copied to 16-byte rows
+    ("onepass", 2, 4096, 4096, 8, 40, f32, "adversarial"),
+    ("onepass", 1, 100, 530, 1, 160, f32, "heads_first"),
+    ("online", 1, 4096, 4096, 1, 512, f32, "fused_qkv"),     # the VAE mid-block's shape
+    ("online", 1, 1000, 1000, 1, 512, f32, "contiguous"),    # ragged q and KV tiles
+    ("online", 1, 512, 600, 1, 512, f32, "contiguous"),
+    ("online", 1, 1024, 5000, 2, 40, f32, "contiguous"),     # the fp32 body past 4096 keys
+    ("online", 1, 1000, 5000, 2, 80, f32, "contiguous"),
+    ("online", 1, 1000, 5000, 2, 160, f32, "heads_first"),
+    ("online", 1, 1000, 1000, 1, 192, f32, "contiguous"),    # the small VAE's width
+    ("online", 1, 70, 513, 2, 192, f32, "heads_first"),
+    ("online", 1, 1000, 5000, 2, 36, f32, "contiguous"),     # zero-padded to 40
+    ("online", 1, 300, 1000, 1, 300, f32, "contiguous"),     # zero-padded to 512
+    ("online", 1, 1000, 5000, 2, 40, f32, "odd_stride"),     # copied to 16-byte rows
+    ("online", 1, 8192, 8192, 2, 40, f32, "adversarial"),
+    ("online", 1, 4096, 4096, 1, 512, f32, "adversarial"),
+]
+CASES += BATCH_CASES + SERVE_CASES + TP_CASES + F32_CASES
 
 
 def log(*args):
@@ -369,29 +403,34 @@ def case_generator(case, base_seed: int = 0) -> torch.Generator:
 
 def reference(name, q, k, v, scale):
     """The plain version's output and, in bf16, ``selfcheck.rounding_slack`` (the
-    allowance for p's rounding), over groups of heads whose fp32 scores stay under
-    ``REF_GROUP_SCORE_BYTES``."""
+    allowance for p's rounding), over groups of heads whose scores stay under
+    ``REF_GROUP_SCORE_BYTES``. For fp32 inputs the plain version runs in fp64: its
+    own fp32 rounding reaches the fp32 tolerance where q is scaled up (the
+    adversarial d = 512 case: 2.5e-5 from fp64, where the kernel is 2.8e-6), so
+    the kernel is held to the function itself."""
     from minsdtf_tpu_torch.tools.selfcheck import rounding_slack
 
     plain = _wrappers()[name][1]
     b, sq, h, _ = q.shape
-    group = max(1, int(REF_GROUP_SCORE_BYTES // (4 * sq * k.shape[1])))
-    want = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    exact = q.dtype == torch.float32
+    group = max(1, int(REF_GROUP_SCORE_BYTES // ((8 if exact else 4) * sq * k.shape[1])))
+    want = torch.empty(q.shape, dtype=torch.float64 if exact else q.dtype, device=q.device)
     slack = torch.zeros(q.shape, device=q.device)
     for i in range(b):
         for h0 in range(0, h, group):
             part = (slice(i, i + 1), slice(None), slice(h0, h0 + group))
-            want[part] = plain(q[part], k[part], v[part], scale)
+            args = [t[part].double() if exact else t[part] for t in (q, k, v)]
+            want[part] = plain(*args, scale)
             if q.dtype == torch.bfloat16:
                 slack[part] = rounding_slack(name, q[part], k[part], v[part], scale, want[part])
     return want, slack
 
 
 def check_case(case, base_seed: int = 0):
-    """One phase-3 case: the kernel against its plain version on the same inputs,
-    drawn by :func:`case_generator`, within ``selfcheck.TOL`` (the package's
-    module says why) plus the allowance for p's rounding. Returns (passed, max
-    abs error, log line)."""
+    """One phase-3 case: the kernel against its plain version on the same inputs
+    (:func:`reference`), drawn by :func:`case_generator`, within ``selfcheck.TOL``
+    (the package's module says why) plus the allowance for p's rounding. Returns
+    (passed, max abs error, log line)."""
     from minsdtf_tpu_torch.tools.selfcheck import TOL
 
     name, b, sq, sk, h, d, dtype, layout = case
@@ -400,13 +439,15 @@ def check_case(case, base_seed: int = 0):
     out = _wrappers()[name][0](q, k, v, scale)
     torch.cuda.synchronize()
     want, slack = reference(name, q, k, v, scale)
-    want = want.float()
+    if dtype != torch.float32:
+        want = want.float()
     rtol, atol = TOL[dtype]
-    err = (out.float() - want).abs()
+    err = (out.to(want.dtype) - want).abs()
     limit = atol + rtol * want.abs()
     ok = bool(torch.isfinite(out).all()) and bool((err <= limit + slack).all())
     max_err = err.max().item()
     line = (f"{name} B{b} Sq{sq} Sk{sk} H{h} D{d} {str(dtype)[6:]} {layout}: max_abs_err "
+            f"{'from the plain version in fp64 ' if dtype == torch.float32 else ''}"
             f"{max_err:.3e} (output rms {want.square().mean().sqrt().item():.3e}, max |out| "
             f"{want.abs().max().item():.3e}) rtol {rtol} atol {atol}, p-rounding slack up to "
             f"{slack.max().item():.3e}, {int((err > limit).sum())} of {err.numel()} elements "
@@ -415,13 +456,14 @@ def check_case(case, base_seed: int = 0):
 
 
 def phase_check():
-    """Each kernel against its plain version; returns {kernel: max abs error at its
-    first (main-path) case}, or None if any case fails."""
+    """Each kernel against its plain version; returns {(kernel, dtype): max abs
+    error at its first case (the main path's, the fp32 path's)}, or None if any
+    case fails."""
     errors, failed = {}, []
     for case in CASES:
         ok, err, line = check_case(case)
         log(f"phase 3 {line}")
-        errors.setdefault(case[0], err)
+        errors.setdefault((case[0], case[6]), err)
         if not ok:
             failed.append(case[:6] + (str(case[6])[6:], case[7]))
     if failed:
@@ -513,18 +555,26 @@ def sdpa_kernels(fn) -> list:
     return list(profiling.op_report(prof, top=None))
 
 
-def phase_time_fp32(gen, timings: dict) -> None:
-    """4f: the fp32 kernels (K1's ``flash_onepass_kernel``, K2's
-    ``flash_online_kernel``) at the shapes of an fp32 512px image, which
-    ``tools.golden --audit`` runs: device time (a CUDA graph of 20 calls), the plain
-    version, SDPA with TF32 off and the kernels it ran, and the bound at the fp32
-    FMA peak. Appended to ``timings``."""
-    timed = [("onepass", 2, 4096, 8, 40), ("onepass", 2, 1024, 8, 80), ("online", 1, 4096, 1, 512)]
+# 4f: an fp32 512px image's shapes (the first of each kernel is the fp32 path's),
+# then an fp32 1024px image's.
+FP32_TIMED = [("onepass", 2, 4096, 8, 40), ("onepass", 2, 1024, 8, 80), ("online", 1, 4096, 1, 512),
+              ("onepass", 2, 4096, 8, 80), ("onepass", 2, 1024, 8, 160),
+              ("online", 2, 16384, 8, 40), ("online", 1, 16384, 1, 512)]
+
+
+def phase_time_fp32(gen) -> dict:
+    """4f: the fp32 kernels (K1's and K2's ``flash_*_f32_kernel``, K2's
+    ``flash_online_f32_wide_kernel`` at d = 512) at the shapes of fp32 512px and
+    1024px images, which the fp32 pipeline (phase 5m) and ``tools.golden --audit``
+    run: device time (a CUDA graph of 20 calls), the plain version (not where its
+    scores exceed ``PLAIN_MAX_SCORE_BYTES``), SDPA with TF32 off and the kernels it
+    ran, and the bound at the fp32 FMA peak. Returns {kernel: [timings]}."""
     wrappers = _wrappers()
+    timings = {}
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        for name, b, s, h, d in timed:
+        for name, b, s, h, d in FP32_TIMED:
             layout = "fused_qkv" if d <= 160 else "contiguous"
             q, k, v = qkv(b, s, s, h, d, torch.float32, gen, layout)
             kern, plain = wrappers[name]
@@ -535,20 +585,25 @@ def phase_time_fp32(gen, timings: dict) -> None:
                 return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
 
             kernel_ms = time_ms(lambda: kern(q, k, v, scale), 20)
-            plain_ms = time_ms(lambda: plain(q, k, v, scale), 5, warmup=1)
+            plain_ms = None
+            if 4.0 * b * h * s * s <= PLAIN_MAX_SCORE_BYTES:
+                plain_ms = time_ms(lambda: plain(q, k, v, scale), 5, warmup=1)
             library_ms = time_ms(sdpa, 20)
             library_kernels = sdpa_kernels(sdpa)
             bound_ms, bound_by = bound(b, s, s, h, d, torch.float32)
-            timings[name].append(dict(
+            timings.setdefault(name, []).append(dict(
                 shape=[b, s, h, d], dtype="float32", ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, library_kernels=library_kernels, bound_ms=bound_ms,
                 bound_by=bound_by))
+            plain_txt = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
             log(f"phase 4f {name} B{b} S{s} H{h} D{d} fp32: kernel {kernel_ms:.4f} ms (graph), "
-                f"plain {plain_ms:.4f} ms, sdpa (TF32 off) {library_ms:.4f} ms running "
-                f"{[n[:90] for n in library_kernels]}, bound {bound_ms:.4f} ms ({bound_by}, "
-                f"fp32 FMA peak), share {bound_ms / kernel_ms:.4f}")
+                f"plain {plain_txt}, sdpa (TF32 off) {library_ms:.4f} ms running "
+                f"{[n[:90] for n in library_kernels]} (kernel / sdpa "
+                f"{kernel_ms / library_ms:.3f}), bound {bound_ms:.4f} ms ({bound_by}, fp32 FMA "
+                f"peak), share {bound_ms / kernel_ms:.4f}")
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return timings
 
 
 def zero_launches():
@@ -621,6 +676,53 @@ def phase_txt2img(bpe, size, warm_images, expect, label):
 
     pipe = StableDiffusion(size, size, bpe_path=bpe)
     return (*run_phase(label, txt2img(pipe), size, warm_images, expect), pipe)
+
+
+# 5m: the fp32 UNet call with the kernels against the same call under
+# plain_scope(), relative to its largest magnitude. The two differ by the order of
+# fp32 sums in attention (~1e-7 relative a call), carried through 16 blocks.
+FP32_UNET_TOL = 1e-4
+FP32_WARM_IMAGES = 2
+
+
+def phase_fp32(bpe: str):
+    """5m: the fp32 path end to end. One full-width fp32 txt2img at 512x512 (25
+    steps, CFG 7.5, batch 1, through the captured program; TF32 off), one cold image
+    and ``FP32_WARM_IMAGES`` warm ones, K1 250 and K2 1 an image (the fp32
+    kernels); then one full-width fp32 UNet call at that shape (batch 2 under CFG,
+    64x64 latent, seeded inputs) with the kernels against the same call under
+    ``plain_scope()``, within ``FP32_UNET_TOL`` of its largest magnitude, launching
+    K1 10 times (the 4096- and 1024-token levels). Returns (passed, launches, warm
+    s/img samples, peak GB, the UNet call's relative error), or None."""
+    from minsdtf_tpu_torch import StableDiffusion
+    from minsdtf_tpu_torch import scheduler
+    from minsdtf_tpu_torch.ops import attention as attn
+
+    pipe = StableDiffusion(512, 512, bpe_path=bpe, compute_dtype=torch.float32)
+    ok, launches, samples, peak_gb = run_phase(
+        "phase 5m fp32 txt2img", txt2img(pipe), 512, FP32_WARM_IMAGES, {"onepass": 250, "online": 1})
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    latent = torch.randn(2, 64, 64, 4, generator=gen, device="cuda")
+    context = torch.randn(2, 77, 768, generator=gen, device="cuda")
+    t_emb = torch.from_numpy(scheduler.timestep_embedding(np.array([500, 500]))).cuda()
+    with torch.no_grad():
+        zero_launches()
+        got = pipe.unet(latent, t_emb, context)
+        torch.cuda.synchronize()
+        unet_launches = read_launches()
+        with attn.plain_scope():
+            want = pipe.unet(latent, t_emb, context)
+        torch.cuda.synchronize()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    checks = {"UNet output finite": bool(torch.isfinite(got).all()),
+              f"UNet against plain_scope within {FP32_UNET_TOL} of its largest": err <= FP32_UNET_TOL,
+              "UNet call launches K1 10, K2 0": unet_launches == {"onepass": 10, "online": 0}}
+    log(f"phase 5m fp32 UNet call (2, 64, 64, 4) with the kernels against plain_scope(): max "
+        f"|diff| / max |plain| {err:.3e} (tol {FP32_UNET_TOL}; max |plain| "
+        f"{want.abs().max().item():.3e}), launches {unet_launches}; checks: {checks}")
+    del pipe
+    torch.cuda.empty_cache()
+    return ok and all(checks.values()), launches, samples, peak_gb, err
 
 
 def synthetic_inputs(size: int, seed: int = 5):
@@ -861,9 +963,9 @@ def phase_program(pipe, new_paths: dict, samplers: dict):
 
 # each wrapper call runs one of these kernels (K2's path B also its merge, not counted)
 DEVICE_KERNELS = {
-    "onepass": re.compile(r"flash_bf16_kernel<\d+, 0>|flash_onepass_kernel\("),  # EXP2_ROUNDED_SUM
+    "onepass": re.compile(r"flash_bf16_kernel<\d+, 0>|flash_onepass_f32_kernel<"),  # EXP2_ROUNDED_SUM
     "online": re.compile(r"flash_bf16_kernel<\d+, 1>|flash_online_d512_kernel\("
-                         r"|flash_online_kernel\("),
+                         r"|flash_online_f32_kernel<|flash_online_f32_wide_kernel<"),
 }
 
 
@@ -2797,10 +2899,14 @@ def main() -> int:
     if errors is None:
         return 1
     timings = phase_time(torch.Generator(device="cuda").manual_seed(0))
-    phase_time_fp32(torch.Generator(device="cuda").manual_seed(0), timings)
+    fp32_timings = phase_time_fp32(torch.Generator(device="cuda").manual_seed(0))
     mark("phases 1-4")
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         bpe = synthetic_merges(tmp)
+        ok, fp32_launches, fp32_samples, fp32_peak_gb, fp32_unet_err = phase_fp32(bpe)
+        if not ok:
+            return 1
+        mark("phase 5m")
         ok, launches, samples, peak_gb, pipe = phase_txt2img(
             bpe, 512, WARM_IMAGES, {"onepass": 250, "online": 1}, "phase 5")
         if not ok:
@@ -2915,9 +3021,20 @@ def main() -> int:
                      "launches_training": training["full_width"]["launches"][name],
                      **{f"launches_{path}": n[name] for path, n in int8_launches.items()},
                      **{f"launches_{path}": n[name] for path, n in mesh_launches.items()},
-                     "max_abs_err": errors[name],
+                     "max_abs_err": errors[name, torch.bfloat16],
                      **{k: main_shape[k] for k in ("ms", "loop_ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms", "shape")},
+                     "other_shapes": others})
+    # the fp32 kernels, on the fp32 path (phase 5m)
+    for name, label, line in (("onepass", "flash_onepass_f32 (K1, fp32)", 153),
+                              ("online", "flash_online_f32 (K2, fp32)", 181)):
+        main_shape, *others = fp32_timings[name]
+        rows.append({"name": label, "route": "cuda",
+                     "source": "minsdtf_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": f"minsdtf_tpu/ops/flash_attention.py:{line}",
+                     "launches": fp32_launches[name], "max_abs_err": errors[name, torch.float32],
+                     **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "shape")},
                      "other_shapes": others})
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "s_per_img": s_per_img, "s_per_img_samples": samples,
@@ -2928,6 +3045,9 @@ def main() -> int:
                                          ("s_per_img_samples", warm), ("peak_gb", peak))},
                    "checkpoints": ckpt_numbers, "serving": serving, "training": training,
                    "int8": int8_results, "mesh": mesh_results, "program": program,
+                   "fp32": {"s_per_img": statistics.median(fp32_samples),
+                            "s_per_img_samples": fp32_samples, "peak_gb": fp32_peak_gb,
+                            "unet_rel_err": fp32_unet_err},
                    "kernels": rows}, f, indent=1)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)

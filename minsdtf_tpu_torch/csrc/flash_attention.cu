@@ -56,10 +56,9 @@
 //    The wrapper sends only d in {40, 80, 160} with 16-byte aligned pointers and
 //    strides that are multiples of 8 elements; it zero-pads other widths.
 //
-//    fp32 (the parity runs; flash_onepass_kernel<float, 64, 64>): each block,
-//    one per (batch*head, 64-row q tile), sweeps the KV tiles twice through
-//    shared memory: sweep 1 finds the row max of the log2-domain scores, sweep 2
-//    computes p = exp2(s - m) and accumulates p v and sum(p) with fp32 FMA.
+//    fp32 (the fp32 pipelines and tools.golden --audit; flash_onepass_f32_kernel,
+//    the fp32 body below with K1's convention): fp32 p is its own rounding, so one
+//    online sweep computes K1's function up to fp32 rounding.
 //
 // K2 minsdtf_flash_online replaces minsdtf_tpu/ops/flash_attention.py _kernel:
 //    blockwise online softmax over a sequential KV grid axis, in the natural-exp
@@ -129,15 +128,76 @@
 //    pointers and strides that are multiples of 8 elements; it zero-pads other
 //    widths.
 //
-//    fp32 (the parity runs; flash_online_kernel<float, 32, 32>): one block per
-//    (batch*head, 32-row q tile) loops over 32-row KV tiles and carries m, l and
-//    the accumulator in shared memory.
+//    fp32 (flash_online_f32_kernel, the fp32 body with K2's convention, at d <= 192;
+//    flash_online_f32_wide_kernel at d = 512).
 //
-// The fp32 kernels (K1's and K2's): 4 warps, fp32 FMA products through shared
-// memory. The head dim is zero-padded to a multiple of 16 in shared memory; rows
-// past the sequence ends and the ragged KV tail are masked. All kernels read
-// strided (B, S, H, D) tensors whose D axis is contiguous and write the output
-// the same way.
+// The fp32 kernels (K1's and K2's). The products stay true fp32 FFMA on the CUDA
+// cores: the JAX kernels run Precision.HIGHEST and the port holds fp32 to 2e-5,
+// which TF32 (and 3xTF32's other products) would not give.
+//    Bound at the fp32 512px shapes: (2, 4096, 8, 40) is 42.9 GFLOP, 0.6410 ms at
+//    the 67 TFLOP/s FFMA peak (128 lanes per SM, 132 SMs, 1.98 GHz); its 2.7e8
+//    exponentials take 64 us on the special-function units, a tenth of that, so
+//    the FFMA pipe sets the floor, and every other instruction (shared-memory
+//    loads, max, exp, shuffles) takes issue slots from it. (1, 4096, 1, 512) is
+//    34.4 GFLOP, 0.5128 ms. Shared memory returns one 128-byte wavefront a clock
+//    per SM where the FFMA pipe takes four warp instructions, so the FFMA peak
+//    needs at least 4 FFMA for every shared-memory load.
+//    What the design does about it (d <= 192; flash_{onepass,online}_f32_kernel<
+//    F32<D, TM, TN>>, D = 40, 80, 160, 192): an SGEMM's register blocking.
+//    - One block of 4 warps per (batch*head, 16 TM q rows), KV tiles of 8 TN keys;
+//      lane = rg + 4 cg. The tiles were chosen by timing (PERF.md): TM = TN = 8
+//      at d = 40 (255 registers, no spill); TM = TN = 4 at d = 80, where at
+//      (2, 1024, 8, 80) 8 x 4 leaves 128 blocks for 132 SMs and 4 x 8 one block
+//      an SM (120 KB of shared memory), both 1.7x slower; at d = 160 TM = 4, TN =
+//      2, whose 86 KB of shared memory let two blocks share an SM (4 x 4 took
+//      132 KB and ran 1.4x slower).
+//      A lane owns TM q rows (rg) and TN keys of the KV tile (cg + 8j): its TM x
+//      TN scores, their p, its rows' m and l, and TM x D/8 outputs stay in
+//      registers for the whole sweep. Per 4 of d it loads TN 16-byte K chunks and
+//      4 TM/4 16-byte Q chunks for 4 TM TN FFMA (d = 40, TM = TN = 8: 16 FFMA a
+//      load); in P V, per key, TM/4 16-byte P loads and D/32 16-byte V loads (plus
+//      one 4- or 8-byte one at d = 40, 80) for TM D/8 FFMA (d = 40: 10 a load).
+//    - Q is loaded once, transposed to [d][row] (K1: times scale * log2(e) in
+//      fp32), so that a lane's rows at one d are contiguous. K and V tiles arrive
+//      by 16-byte cp.async in a 2-stage ring, tile j + 1 loading while tile j
+//      computes, one __syncthreads per tile. K rows are D + 4 floats apart (an odd
+//      number of 16-byte chunks), so the two keys a quarter-warp reads lie in other
+//      banks; every other read is a broadcast or 128 contiguous bytes. The ragged
+//      KV tail is zero-filled (src-size 0) and its scores masked to -inf; ragged q
+//      rows are zero and not stored.
+//    - The row max and sum reduce over the 8 lanes of a row group (__shfl_xor_sync
+//      4, 8, 16), the sum once, in the epilogue. One online sweep: O and l are
+//      rescaled only when some max of the warp grew (a warp vote).
+//    - P reaches P V through a staging tile of the warp's own (keys x rows, a row
+//      per key padded to 36 or 16 floats: conflict-free 16-byte stores), written
+//      and read by that warp alone (__syncwarp); there is no S buffer.
+//    - K1's convention: q pre-scaled, p = ex2(s - m). K2's: q as it is, the max
+//      kept on the raw scores (the wrapper hands the kernels a scale > 0, as for
+//      bf16), p = ex2(s c - m c), one FFMA, c = scale * log2(e). Both sum the fp32 p.
+//    d = 512 (flash_online_f32_wide_kernel, the VAE mid-block): Q for 64
+//    rows x 512 is 128 KB and a 32-key K or V tile 64 KB, so Q cannot share shared
+//    memory with a K/V ring for enough rows to reuse each K row. Q stays in
+//    registers instead:
+//    - One block of 8 warps per (batch*head, 32 q rows); a warp owns 4 rows, a
+//      lane the same 16 of the 512 columns (4 lane + 128 c) of their Q and of their
+//      O, both in registers (64 + 64 floats).
+//    - S: per key, 4 16-byte K loads for 64 FFMA of the lane's partial dot
+//      products; every 8 keys the warp reduce-scatters its 32 partials (4 rows x 8
+//      keys) by 5 butterfly shuffle steps, which leaves lane L the score of row
+//      L / 8, key L % 8, in a register: no S buffer. The softmax runs there (the max
+//      over the 8 lanes of a row), and P goes to a 16-key x 4-row staging tile of
+//      the warp, read back as one 16-byte broadcast per key for P V.
+//    - K and V tiles of 16 keys in a 2-stage cp.async ring, 128 KB.
+//    - S is computed once per q tile: 128 blocks at S = 4096 with one head, one a
+//      SM. Splitting the output width over two blocks as bf16 path B does (S
+//      computed twice, 1.5x the products, twice the blocks) measured 1.48 ms
+//      against this design's 0.94 ms at (1, 4096, 1, 512) (PERF.md).
+//    All the fp32 kernels take D in {40, 80, 160} (K1) or {40, 80, 160, 192, 512}
+//    (K2) with 16-byte aligned pointers and strides that are multiples of 4
+//    elements; the wrapper zero-pads other widths.
+//
+// All kernels read strided (B, S, H, D) tensors whose D axis is contiguous and
+// write the output the same way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -148,9 +208,6 @@
 
 namespace {
 
-constexpr int NT = 128;  // threads per block
-constexpr int NWARPS = NT / 32;
-constexpr float NEG_BIG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
@@ -158,7 +215,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  int B, H, Sq, Sk, D, DP;
+  int B, H, Sq, Sk, D;
   // strides in elements of the B, S and H axes; the D axis has stride 1
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
   float scale;
@@ -168,216 +225,6 @@ struct Params {
   int splits;
   float* ws;
 };
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Rows [row0, row0 + R) of one (b, h) slice into dst[R][DP], zero past S and D.
-// With `mul` != 1 each value is multiplied in fp32 and rounded back to T.
-template <typename T, int R>
-__device__ void load_tile(T* dst, const T* base, long long s_stride, int row0, int S, int D,
-                          int DP, float mul) {
-  for (int idx = threadIdx.x; idx < R * DP; idx += NT) {
-    const int r = idx / DP;
-    const int c = idx - r * DP;
-    const int s = row0 + r;
-    T val = T(0.f);
-    if (s < S && c < D) {
-      val = base[(long long)s * s_stride + c];
-      if (mul != 1.f) val = T(float(val) * mul);
-    }
-    dst[idx] = val;
-  }
-}
-
-// S[BQ][BK] = Q[BQ][DP] . K[BK][DP]^T in fp32.
-template <typename T, int BQ, int BK>
-__device__ void qk_tile(const T* Qs, const T* Ks, float* Ss, int DP) {
-  for (int idx = threadIdx.x; idx < BQ * BK; idx += NT) {
-    const int i = idx / BK, j = idx - (idx / BK) * BK;
-    const T* qr = Qs + i * DP;
-    const T* kr = Ks + j * DP;
-    float acc = 0.f;
-    for (int c = 0; c < DP; ++c) acc = fmaf(qr[c], kr[c], acc);
-    Ss[idx] = acc;
-  }
-}
-
-// Acc[BQ][DP] += P[BQ][BK] . V[BK][DP] in fp32.
-template <typename T, int BQ, int BK>
-__device__ void pv_tile(const T* Ps, const T* Vs, float* Acc, int DP) {
-  for (int idx = threadIdx.x; idx < BQ * DP; idx += NT) {
-    const int i = idx / DP, c = idx - (idx / DP) * DP;
-    const T* pr = Ps + i * BK;
-    float acc = Acc[idx];
-    for (int j = 0; j < BK; ++j) acc = fmaf(pr[j], Vs[j * DP + c], acc);
-    Acc[idx] = acc;
-  }
-}
-
-// Shared memory: Q[BQ][DP] T | KV[BK][DP] T (K, then V of the same tile) |
-// S[BQ][BK] f32 | P[BQ][BK] T | Acc[BQ][DP] f32 | m[BQ] f32 | l[BQ] f32.
-template <typename T, int BQ, int BK>
-__host__ __device__ size_t smem_bytes(int DP) {
-  return (size_t)BQ * DP * sizeof(T) + (size_t)BK * DP * sizeof(T) + (size_t)BQ * BK * 4 +
-         (size_t)BQ * BK * sizeof(T) + (size_t)BQ * DP * 4 + (size_t)2 * BQ * 4;
-}
-
-template <typename T, int BQ, int BK>
-struct Smem {
-  T* Q;
-  T* KV;
-  float* S;
-  T* P;
-  float* Acc;
-  float* M;
-  float* L;
-  __device__ Smem(unsigned char* raw, int DP) {
-    Q = reinterpret_cast<T*>(raw);
-    KV = Q + BQ * DP;
-    S = reinterpret_cast<float*>(KV + BK * DP);
-    P = reinterpret_cast<T*>(S + BQ * BK);
-    Acc = reinterpret_cast<float*>(P + BQ * BK);
-    M = Acc + BQ * DP;
-    L = M + BQ;
-  }
-};
-
-template <typename T, int BQ>
-__device__ void init_state(float* Acc, float* M, float* L, int DP) {
-  for (int i = threadIdx.x; i < BQ * DP; i += NT) Acc[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += NT) {
-    M[i] = NEG_BIG;
-    L[i] = 0.f;
-  }
-}
-
-template <typename T, int BQ>
-__device__ void store_out(const Params& p, const float* Acc, const float* L, int b, int h,
-                          int q0) {
-  T* o = reinterpret_cast<T*>(p.o) + b * p.ob + h * p.oh;
-  for (int idx = threadIdx.x; idx < BQ * p.DP; idx += NT) {
-    const int r = idx / p.DP, c = idx - (idx / p.DP) * p.DP;
-    const int s = q0 + r;
-    if (s < p.Sq && c < p.D) o[(long long)s * p.os + c] = T(Acc[idx] / L[r]);
-  }
-}
-
-template <typename T, int BQ, int BK>
-__global__ void __launch_bounds__(NT) flash_onepass_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int DP = p.DP;
-  Smem<T, BQ, BK> sm(smem_raw, DP);
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* qg = reinterpret_cast<const T*>(p.q) + b * p.qb + h * p.qh;
-  const T* kg = reinterpret_cast<const T*>(p.k) + b * p.kb + h * p.kh;
-  const T* vg = reinterpret_cast<const T*>(p.v) + b * p.vb + h * p.vh;
-
-  // log2-domain scores: scale * log2(e) folded into q, rounded to T
-  load_tile<T, BQ>(sm.Q, qg, p.qs, q0, p.Sq, p.D, DP, p.scale * LOG2E);
-  init_state<T, BQ>(sm.Acc, sm.M, sm.L, DP);
-  __syncthreads();
-
-  // sweep 1: row max
-  for (int k0 = 0; k0 < p.Sk; k0 += BK) {
-    load_tile<T, BK>(sm.KV, kg, p.ks, k0, p.Sk, p.D, DP, 1.f);
-    __syncthreads();
-    qk_tile<T, BQ, BK>(sm.Q, sm.KV, sm.S, DP);
-    __syncthreads();
-    const int nvalid = min(BK, p.Sk - k0);
-    for (int r = warp; r < BQ; r += NWARPS) {
-      float m = NEG_BIG;
-      for (int j = lane; j < nvalid; j += 32) m = fmaxf(m, sm.S[r * BK + j]);
-      m = warp_max(m);
-      if (lane == 0) sm.M[r] = fmaxf(sm.M[r], m);
-    }
-    __syncthreads();
-  }
-
-  // sweep 2: p = exp2(s - m), acc += p v, l += sum of the rounded p
-  for (int k0 = 0; k0 < p.Sk; k0 += BK) {
-    load_tile<T, BK>(sm.KV, kg, p.ks, k0, p.Sk, p.D, DP, 1.f);
-    __syncthreads();
-    qk_tile<T, BQ, BK>(sm.Q, sm.KV, sm.S, DP);
-    __syncthreads();
-    const int nvalid = min(BK, p.Sk - k0);
-    for (int r = warp; r < BQ; r += NWARPS) {
-      const float m = sm.M[r];
-      float l = 0.f;
-      for (int j = lane; j < BK; j += 32) {
-        const T pj = T(j < nvalid ? exp2f(sm.S[r * BK + j] - m) : 0.f);
-        sm.P[r * BK + j] = pj;
-        l += float(pj);
-      }
-      l = warp_sum(l);
-      if (lane == 0) sm.L[r] += l;
-    }
-    load_tile<T, BK>(sm.KV, vg, p.vs, k0, p.Sk, p.D, DP, 1.f);
-    __syncthreads();
-    pv_tile<T, BQ, BK>(sm.P, sm.KV, sm.Acc, DP);
-    __syncthreads();
-  }
-  store_out<T, BQ>(p, sm.Acc, sm.L, b, h, q0);
-}
-
-template <typename T, int BQ, int BK>
-__global__ void __launch_bounds__(NT) flash_online_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int DP = p.DP;
-  Smem<T, BQ, BK> sm(smem_raw, DP);
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* qg = reinterpret_cast<const T*>(p.q) + b * p.qb + h * p.qh;
-  const T* kg = reinterpret_cast<const T*>(p.k) + b * p.kb + h * p.kh;
-  const T* vg = reinterpret_cast<const T*>(p.v) + b * p.vb + h * p.vh;
-
-  load_tile<T, BQ>(sm.Q, qg, p.qs, q0, p.Sq, p.D, DP, 1.f);
-  init_state<T, BQ>(sm.Acc, sm.M, sm.L, DP);
-  __syncthreads();
-
-  for (int k0 = 0; k0 < p.Sk; k0 += BK) {
-    load_tile<T, BK>(sm.KV, kg, p.ks, k0, p.Sk, p.D, DP, 1.f);
-    __syncthreads();
-    qk_tile<T, BQ, BK>(sm.Q, sm.KV, sm.S, DP);
-    __syncthreads();
-    const int nvalid = min(BK, p.Sk - k0);
-    for (int r = warp; r < BQ; r += NWARPS) {
-      const float m_prev = sm.M[r];
-      float m_cur = NEG_BIG;
-      for (int j = lane; j < nvalid; j += 32) m_cur = fmaxf(m_cur, sm.S[r * BK + j] * p.scale);
-      const float m_new = fmaxf(m_prev, warp_max(m_cur));
-      float l = 0.f;
-      for (int j = lane; j < BK; j += 32) {
-        const float pj = j < nvalid ? expf(sm.S[r * BK + j] * p.scale - m_new) : 0.f;
-        sm.P[r * BK + j] = T(pj);
-        l += pj;  // the TPU kernel sums the fp32 p
-      }
-      l = warp_sum(l);
-      const float corr = expf(m_prev - m_new);
-      for (int c = lane; c < DP; c += 32) sm.Acc[r * DP + c] *= corr;
-      __syncwarp();
-      if (lane == 0) {
-        sm.M[r] = m_new;
-        sm.L[r] = corr * sm.L[r] + l;
-      }
-    }
-    load_tile<T, BK>(sm.KV, vg, p.vs, k0, p.Sk, p.D, DP, 1.f);
-    __syncthreads();
-    pv_tile<T, BQ, BK>(sm.P, sm.KV, sm.Acc, DP);
-    __syncthreads();
-  }
-  store_out<T, BQ>(p, sm.Acc, sm.L, b, h, q0);
-}
 
 // ---- bf16: FlashAttention on wgmma, scores in registers (K1, and K2 path A) ----
 
@@ -1061,6 +908,467 @@ __global__ void __launch_bounds__(256) flash_online_d512_merge_kernel(Params p) 
                                              pack_bf16(acc[6] / sum, acc[7] / sum));
 }
 
+// ---- fp32: register-blocked FFMA attention (K1; K2 at d <= 192) ----
+
+// A lane's share of the fp32 body: lane = rg + 4 cg; rg (0..3) picks its TM q rows
+// of the warp's 4 TM, cg (0..7) its keys cg + 8j (j < TN) of each KV tile and its
+// D / 8 output columns: 4 at 32 c + 4 cg for each c < D / 32, then CR at
+// 32 (D / 32) + CR cg.
+template <int D_, int TM_, int TN_>
+struct F32 {
+  static constexpr int D = D_, TM = TM_, TN = TN_;
+  static constexpr int NT = 128;                  // threads: 4 warps
+  static constexpr int WR = 4 * TM;               // q rows per warp
+  static constexpr int BQ = 4 * WR;               // q rows per block
+  static constexpr int BK = 8 * TN;               // keys per KV tile
+  static constexpr int STAGES = 2;
+  static constexpr int CH = D / 4;                // 16-byte chunks per row
+  static constexpr int C4 = D / 32;               // a lane's 16-byte output chunks
+  static constexpr int CR = D % 32 / 8;           // and its columns after them
+  static constexpr int TD = 4 * C4 + CR;          // = D / 8
+  static constexpr int KS = D + 4;                // K row stride: an odd number of chunks
+  // P row stride (a row per key, a column per q row of the warp): the 16-byte
+  // stores of a quarter-warp (two cg, four rg) then fall in 8 distinct bank groups.
+  static constexpr int PS = TM == 8 ? 36 : 16;
+  static constexpr int Q_FLOATS = D * BQ;         // Q transposed: [D][BQ]
+  static constexpr int K_FLOATS = BK * KS;
+  static constexpr int V_FLOATS = BK * D;
+  static constexpr int P_FLOATS = BK * PS;        // per warp
+  static constexpr size_t SMEM =
+      4 * (size_t(Q_FLOATS) + STAGES * (K_FLOATS + V_FLOATS) + 4 * P_FLOATS);
+  static_assert(D % 8 == 0 && CR <= 2 && (TM == 4 || TM == 8), "tiling");
+};
+
+// The tiles each fp32 width is built with (PERF.md has the times of others).
+using F32_40 = F32<40, 8, 8>;
+using F32_80 = F32<80, 4, 4>;
+using F32_160 = F32<160, 4, 2>;
+using F32_192 = F32<192, 4, 4>;
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+template <typename T, int MODE>
+__device__ __forceinline__ void f32_body(const Params& p) {
+  constexpr int D = T::D, TM = T::TM, TN = T::TN, BQ = T::BQ, BK = T::BK, KS = T::KS;
+  constexpr int PS = T::PS, CH = T::CH, C4 = T::C4, CR = T::CR, NT = T::NT;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);   // [D][BQ]
+  float* sK = sQ + T::Q_FLOATS;                      // [STAGES][BK][KS]
+  float* sV = sK + T::STAGES * T::K_FLOATS;          // [STAGES][BK][D]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = lane & 3, cg = lane >> 2;
+  float* sP = sV + T::STAGES * T::V_FLOATS + warp * T::P_FLOATS;  // [BK][PS], this warp's
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int q0 = blockIdx.x * BQ;
+  const float* qg = static_cast<const float*>(p.q) + b * p.qb + h * p.qh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.kb + h * p.kh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.vb + h * p.vh;
+  const int ntiles = (p.Sk + BK - 1) / BK;
+
+  // Key r of a tile to row r of its stage, chunk by chunk; thread order is chunk
+  // order, so a warp copies whole rows.
+  auto load_kv = [&](int tile) {
+    const uint32_t dk = smem_u32(sK + (tile % T::STAGES) * T::K_FLOATS);
+    const uint32_t dv = smem_u32(sV + (tile % T::STAGES) * T::V_FLOATS);
+    const int key0 = tile * BK;
+#pragma unroll
+    for (int i = 0; i < (BK * CH + NT - 1) / NT; ++i) {
+      const int idx = threadIdx.x + i * NT;
+      if (BK * CH % NT == 0 || idx < BK * CH) {
+        const int r = idx / CH, c = idx - (idx / CH) * CH;
+        const bool valid = key0 + r < p.Sk;
+        const long long key = valid ? key0 + r : 0;
+        cp_async16(dk + (r * KS + c * 4) * 4, kg + key * p.ks + c * 4, valid);
+        cp_async16(dv + (r * D + c * 4) * 4, vg + key * p.vs + c * 4, valid);
+      }
+    }
+  };
+  load_kv(0);
+  cp_async_commit();
+
+  // Q transposed, zero past Sq; K1 folds scale * log2(e) in.
+  const float qmul = MODE == EXP2_ROUNDED_SUM ? p.scale * LOG2E : 1.f;
+  for (int idx = threadIdx.x; idx < BQ * CH; idx += NT) {
+    const int r = idx % BQ, c = idx / BQ;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < p.Sq)
+      x = *reinterpret_cast<const float4*>(qg + (long long)(q0 + r) * p.qs + c * 4);
+    sQ[(c * 4 + 0) * BQ + r] = x.x * qmul;
+    sQ[(c * 4 + 1) * BQ + r] = x.y * qmul;
+    sQ[(c * 4 + 2) * BQ + r] = x.z * qmul;
+    sQ[(c * 4 + 3) * BQ + r] = x.w * qmul;
+  }
+
+  const float c = p.scale * LOG2E;
+  const float* qw = sQ + warp * T::WR + rg * TM;  // this lane's rows at d = 0
+  float o[TM][T::TD], m[TM], l[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < T::TD; ++n) o[i][n] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it (and Q) landed; every warp is done with tile it - 1
+    if (it + 1 < ntiles) load_kv(it + 1);
+    cp_async_commit();
+    const float* kt = sK + (it % T::STAGES) * T::K_FLOATS + cg * KS;
+    const float* vt = sV + (it % T::STAGES) * T::V_FLOATS;
+
+    // S = Q K^T: per 4 of d, TN K chunks and 4 x TM/4 Q chunks for 4 TM TN FFMA.
+    float s[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int d4 = 0; d4 < CH; ++d4) {
+      float4 kf[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(kt + j * 8 * KS + d4 * 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float qf[TM];
+#pragma unroll
+        for (int hq = 0; hq < TM / 4; ++hq) {
+          const float4 x = *reinterpret_cast<const float4*>(qw + (d4 * 4 + e) * BQ + hq * 4);
+          qf[4 * hq] = x.x;
+          qf[4 * hq + 1] = x.y;
+          qf[4 * hq + 2] = x.z;
+          qf[4 * hq + 3] = x.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) s[i][j] = fmaf(qf[i], lane_of(kf[j], e), s[i][j]);
+      }
+    }
+
+    if (it * BK + BK > p.Sk) {  // the ragged tail
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        if (it * BK + cg + 8 * j >= p.Sk)
+#pragma unroll
+          for (int i = 0; i < TM; ++i) s[i][j] = -INFINITY;
+    }
+    // The running max of each row over the 8 lanes of its row group; O and l are
+    // rescaled only if some max of the warp grew.
+    float m_new[TM];
+    bool grew = false;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float x = s[i][0];
+#pragma unroll
+      for (int j = 1; j < TN; ++j) x = fmaxf(x, s[i][j]);
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 16));
+      m_new[i] = fmaxf(m[i], x);
+      grew |= m_new[i] != m[i];
+    }
+    if (__any_sync(0xffffffffu, grew)) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float alpha = MODE == EXP2_ROUNDED_SUM ? ex2(m[i] - m_new[i])
+                                                     : ex2((m[i] - m_new[i]) * c);
+        m[i] = m_new[i];
+        l[i] *= alpha;
+#pragma unroll
+        for (int n = 0; n < T::TD; ++n) o[i][n] *= alpha;
+      }
+    }
+    // p in place of s, summed into this lane's part of l, then staged for P V.
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float mc = m[i] * c;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        s[i][j] = MODE == EXP2_ROUNDED_SUM ? ex2(s[i][j] - m[i]) : ex2(fmaf(s[i][j], c, -mc));
+        l[i] += s[i][j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+#pragma unroll
+      for (int hq = 0; hq < TM / 4; ++hq)
+        *reinterpret_cast<float4*>(sP + (cg + 8 * j) * PS + rg * TM + hq * 4) =
+            make_float4(s[4 * hq][j], s[4 * hq + 1][j], s[4 * hq + 2][j], s[4 * hq + 3][j]);
+    __syncwarp();
+
+    // O += P V: per key, TM/4 P chunks (broadcast) and the lane's V columns.
+    const float* pw = sP + rg * TM;
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float pf[TM];
+#pragma unroll
+      for (int hq = 0; hq < TM / 4; ++hq) {
+        const float4 x = *reinterpret_cast<const float4*>(pw + k * PS + hq * 4);
+        pf[4 * hq] = x.x;
+        pf[4 * hq + 1] = x.y;
+        pf[4 * hq + 2] = x.z;
+        pf[4 * hq + 3] = x.w;
+      }
+      const float* vr = vt + k * D;
+#pragma unroll
+      for (int c4 = 0; c4 < C4; ++c4) {
+        const float4 x = *reinterpret_cast<const float4*>(vr + 32 * c4 + 4 * cg);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          o[i][4 * c4] = fmaf(pf[i], x.x, o[i][4 * c4]);
+          o[i][4 * c4 + 1] = fmaf(pf[i], x.y, o[i][4 * c4 + 1]);
+          o[i][4 * c4 + 2] = fmaf(pf[i], x.z, o[i][4 * c4 + 2]);
+          o[i][4 * c4 + 3] = fmaf(pf[i], x.w, o[i][4 * c4 + 3]);
+        }
+      }
+      if constexpr (CR == 1) {
+        const float x = vr[32 * C4 + cg];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) o[i][4 * C4] = fmaf(pf[i], x, o[i][4 * C4]);
+      } else if constexpr (CR == 2) {
+        const float2 x = *reinterpret_cast<const float2*>(vr + 32 * C4 + 2 * cg);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          o[i][4 * C4] = fmaf(pf[i], x.x, o[i][4 * C4]);
+          o[i][4 * C4 + 1] = fmaf(pf[i], x.y, o[i][4 * C4 + 1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // O / l, l summed over the row group's 8 lanes; rows past Sq are not stored.
+  float* og = static_cast<float*>(p.o) + b * p.ob + h * p.oh;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float sum = l[i];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+    const int row = q0 + warp * T::WR + rg * TM + i;
+    if (row >= p.Sq) continue;
+    float* orow = og + (long long)row * p.os;
+#pragma unroll
+    for (int c4 = 0; c4 < C4; ++c4)
+      *reinterpret_cast<float4*>(orow + 32 * c4 + 4 * cg) =
+          make_float4(o[i][4 * c4] / sum, o[i][4 * c4 + 1] / sum, o[i][4 * c4 + 2] / sum,
+                      o[i][4 * c4 + 3] / sum);
+    if constexpr (CR == 1) orow[32 * C4 + cg] = o[i][4 * C4] / sum;
+    if constexpr (CR == 2)
+      *reinterpret_cast<float2*>(orow + 32 * C4 + 2 * cg) =
+          make_float2(o[i][4 * C4] / sum, o[i][4 * C4 + 1] / sum);
+  }
+}
+
+// K1 in fp32, and K2 in fp32 at d <= 192: one body, two softmax conventions.
+template <typename T>
+__global__ void __launch_bounds__(T::NT) flash_onepass_f32_kernel(Params p) {
+  f32_body<T, EXP2_ROUNDED_SUM>(p);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(T::NT) flash_online_f32_kernel(Params p) {
+  f32_body<T, EXP_FP32_SUM>(p);
+}
+
+// ---- K2, fp32, d = 512: Q and O in registers, S by shuffles ----
+
+struct WideF32 {
+  static constexpr int D = 512;
+  static constexpr int NT = 256, NW = NT / 32;
+  static constexpr int R = 4;                  // q rows per warp
+  static constexpr int BQ = NW * R;            // q rows per block
+  static constexpr int BK = 16;                // keys per KV tile, two groups of 8
+  static constexpr int STAGES = 2;
+  static constexpr int QC = D / 128;           // a lane's 16-byte Q and O chunks: 4 lane + 128 c
+  static constexpr int KV_FLOATS = BK * D;     // a K or V tile
+  static constexpr int P_FLOATS = BK * R;      // per warp: [BK][R]
+  static constexpr size_t SMEM = 4 * (size_t(STAGES) * 2 * KV_FLOATS + NW * P_FLOATS);
+};
+
+// One butterfly step of a reduce-scatter over the warp: this lane keeps the upper
+// half of v[0, N) when `up`, adds the partner's copy of that half (lane ^ off).
+template <int N>
+__device__ __forceinline__ void scatter_step(float (&v)[32], bool up, int off) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float send = up ? v[i] : v[i + N / 2];
+    const float keep = up ? v[i + N / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+  }
+}
+
+// The sum over the warp's 32 lanes of element `lane` of their v.
+__device__ __forceinline__ float reduce_scatter(float (&v)[32], int lane) {
+  scatter_step<32>(v, lane & 16, 16);
+  scatter_step<16>(v, lane & 8, 8);
+  scatter_step<8>(v, lane & 4, 4);
+  scatter_step<4>(v, lane & 2, 2);
+  scatter_step<2>(v, lane & 1, 1);
+  return v[0];
+}
+
+__global__ void __launch_bounds__(WideF32::NT, 1) flash_online_f32_wide_kernel(Params p) {
+  using W = WideF32;
+  constexpr int D = W::D, R = W::R, BK = W::BK, QC = W::QC, NT = W::NT;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);   // [STAGES][BK][D]
+  float* sV = sK + W::STAGES * W::KV_FLOATS;         // [STAGES][BK][D]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* sP = sV + W::STAGES * W::KV_FLOATS + warp * W::P_FLOATS;  // [BK][R], this warp's
+  const int row0 = blockIdx.x * W::BQ + warp * R;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const float* qg = static_cast<const float*>(p.q) + b * p.qb + h * p.qh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.kb + h * p.kh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.vb + h * p.vh;
+  const int ntiles = (p.Sk + BK - 1) / BK;
+
+  auto load_kv = [&](int tile) {
+    const uint32_t dk = smem_u32(sK + (tile % W::STAGES) * W::KV_FLOATS);
+    const uint32_t dv = smem_u32(sV + (tile % W::STAGES) * W::KV_FLOATS);
+    const int key0 = tile * BK;
+#pragma unroll
+    for (int i = 0; i < BK * D / 4 / NT; ++i) {
+      const int idx = threadIdx.x + i * NT;
+      const int r = idx / (D / 4), cc = idx % (D / 4);
+      const bool valid = key0 + r < p.Sk;
+      const long long key = valid ? key0 + r : 0;
+      cp_async16(dk + idx * 16, kg + key * p.ks + cc * 4, valid);
+      cp_async16(dv + idx * 16, vg + key * p.vs + cc * 4, valid);
+    }
+  };
+  load_kv(0);
+  cp_async_commit();
+
+  // This warp's 4 q rows, the lane's 16 columns of each, zero past Sq.
+  float4 q[R][QC];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int cc = 0; cc < QC; ++cc)
+      q[r][cc] = row0 + r < p.Sq
+                     ? *reinterpret_cast<const float4*>(qg + (long long)(row0 + r) * p.qs +
+                                                        4 * lane + 128 * cc)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const float c = p.scale * LOG2E;
+  float4 o[R][QC];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int cc = 0; cc < QC; ++cc) o[r][cc] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // The running max of row lane / 8, whose scores lanes 8 (lane / 8) .. + 7 hold,
+  // and this lane's part of its sum.
+  float m = -INFINITY, l = 0.f;
+  const int my_row = lane >> 3, my_key = lane & 7;
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    if (it + 1 < ntiles) load_kv(it + 1);
+    cp_async_commit();
+    const float* kt = sK + (it % W::STAGES) * W::KV_FLOATS + 4 * lane;
+    const float* vt = sV + (it % W::STAGES) * W::KV_FLOATS + 4 * lane;
+
+    // S over all of d, 8 keys at a time: the lane's partial dot products of its 4
+    // rows with each key over its 16 columns, reduce-scattered over the warp.
+    float s[2];
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      float v[32];  // v[8 r + j]: row r, key 8 g + j
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float4 kf[QC];
+#pragma unroll
+        for (int cc = 0; cc < QC; ++cc)
+          kf[cc] = *reinterpret_cast<const float4*>(kt + (8 * g + j) * D + 128 * cc);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float acc = 0.f;
+#pragma unroll
+          for (int cc = 0; cc < QC; ++cc) {
+            acc = fmaf(q[r][cc].x, kf[cc].x, acc);
+            acc = fmaf(q[r][cc].y, kf[cc].y, acc);
+            acc = fmaf(q[r][cc].z, kf[cc].z, acc);
+            acc = fmaf(q[r][cc].w, kf[cc].w, acc);
+          }
+          v[8 * r + j] = acc;
+        }
+      }
+      s[g] = reduce_scatter(v, lane);  // row lane / 8, key 8 g + lane % 8
+      if (it * BK + 8 * g + my_key >= p.Sk) s[g] = -INFINITY;  // the ragged tail
+    }
+
+    float x = fmaxf(s[0], s[1]);
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+    const float m_new = fmaxf(m, x);
+    if (__any_sync(0xffffffffu, m_new != m)) {
+      const float alpha = ex2((m - m_new) * c);  // 1 where the max held, 0 at the first tile
+      m = m_new;
+      l *= alpha;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float a = __shfl_sync(0xffffffffu, alpha, 8 * r);
+#pragma unroll
+        for (int cc = 0; cc < QC; ++cc) {
+          o[r][cc].x *= a;
+          o[r][cc].y *= a;
+          o[r][cc].z *= a;
+          o[r][cc].w *= a;
+        }
+      }
+    }
+    const float mc = m * c;
+    const float p0 = ex2(fmaf(s[0], c, -mc)), p1 = ex2(fmaf(s[1], c, -mc));
+    l += p0 + p1;
+    sP[my_key * R + my_row] = p0;
+    sP[(8 + my_key) * R + my_row] = p1;
+    __syncwarp();
+
+    // O += P V: per key, one P chunk (the warp's 4 rows, a broadcast) and the
+    // lane's V chunks.
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const float4 pf = *reinterpret_cast<const float4*>(sP + k * R);
+      const float pr[R] = {pf.x, pf.y, pf.z, pf.w};
+#pragma unroll
+      for (int cc = 0; cc < QC; ++cc) {
+        const float4 x4 = *reinterpret_cast<const float4*>(vt + k * D + 128 * cc);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          o[r][cc].x = fmaf(pr[r], x4.x, o[r][cc].x);
+          o[r][cc].y = fmaf(pr[r], x4.y, o[r][cc].y);
+          o[r][cc].z = fmaf(pr[r], x4.z, o[r][cc].z);
+          o[r][cc].w = fmaf(pr[r], x4.w, o[r][cc].w);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // O / l: l summed over the 8 lanes of each row, then handed to every lane.
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  l += __shfl_xor_sync(0xffffffffu, l, 4);
+  float* og = static_cast<float*>(p.o) + b * p.ob + h * p.oh + 4 * lane;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float sum = __shfl_sync(0xffffffffu, l, 8 * r);
+    if (row0 + r >= p.Sq) continue;
+#pragma unroll
+    for (int cc = 0; cc < QC; ++cc)
+      *reinterpret_cast<float4*>(og + (long long)(row0 + r) * p.os + 128 * cc) =
+          make_float4(o[r][cc].x / sum, o[r][cc].y / sum, o[r][cc].z / sum, o[r][cc].w / sum);
+  }
+}
+
 // The number of KV parts of a path-B call: with fewer (q tile, half) blocks than
 // the card has SMs (at S = 4096 and one head, 64 blocks for 132 SMs), the KV
 // range is cut into as many parts as keep the blocks within one wave, each part
@@ -1121,13 +1429,14 @@ int launch_d512(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The bf16 kernels' cp.async and 16-byte stores need 16-byte aligned rows.
-bool aligned16(const Params& p, const long long* st) {
+// The kernels' cp.async and 16-byte loads and stores need 16-byte aligned rows:
+// aligned pointers, and strides that are multiples of `per16` elements.
+bool aligned16(const Params& p, const long long* st, int per16) {
   const void* ptrs[4] = {p.q, p.k, p.v, p.o};
   for (const void* ptr : ptrs)
     if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
   for (int i = 0; i < 12; ++i)
-    if (st[i] % 8) return false;
+    if (st[i] % per16) return false;
   return true;
 }
 
@@ -1146,21 +1455,37 @@ int blocks_per_sm_bf16() {
                        Tile<D>::SMEM);
 }
 
-template <typename T, int BQ, int BK, bool ONEPASS>
-int launch(const Params& p, cudaStream_t stream) {
-  void (*kern)(Params);
-  if constexpr (ONEPASS) {
-    kern = flash_onepass_kernel<T, BQ, BK>;
-  } else {
-    kern = flash_online_kernel<T, BQ, BK>;
-  }
-  const size_t smem = smem_bytes<T, BQ, BK>(p.DP);
-  // Set once, to the most any head width can need (see allow_smem).
-  static const cudaError_t err = allow_smem(kern, smem_bytes<T, BQ, BK>(ONEPASS ? 160 : 512));
+// K1 (MODE = EXP2_ROUNDED_SUM) or K2 (EXP_FP32_SUM) in fp32 at the width of T.
+template <typename T, int MODE>
+int launch_f32(const Params& p, cudaStream_t stream) {
+  void (*kern)(Params) =
+      MODE == EXP2_ROUNDED_SUM ? flash_onepass_f32_kernel<T> : flash_online_f32_kernel<T>;
+  static const cudaError_t err = allow_smem(kern, T::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.H);
-  kern<<<grid, NT, smem, stream>>>(p);
+  dim3 grid((p.Sq + T::BQ - 1) / T::BQ, p.B * p.H);
+  kern<<<grid, T::NT, T::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+int launch_f32_wide(const Params& p, cudaStream_t stream) {
+  static const cudaError_t err = allow_smem(flash_online_f32_wide_kernel, WideF32::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.Sq + WideF32::BQ - 1) / WideF32::BQ, p.B * p.H);
+  flash_online_f32_wide_kernel<<<grid, WideF32::NT, WideF32::SMEM, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// K1 and K2 in fp32 at the widths they are built for.
+template <int MODE>
+int launch_f32_width(const Params& p, cudaStream_t stream) {
+  if (p.D == 40) return launch_f32<F32_40, MODE>(p, stream);
+  if (p.D == 80) return launch_f32<F32_80, MODE>(p, stream);
+  if (p.D == 160) return launch_f32<F32_160, MODE>(p, stream);
+  if constexpr (MODE == EXP_FP32_SUM) {
+    if (p.D == 192) return launch_f32<F32_192, MODE>(p, stream);
+    if (p.D == 512) return launch_f32_wide(p, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 Params make_params(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
@@ -1175,7 +1500,6 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int B, 
   p.Sq = Sq;
   p.Sk = Sk;
   p.D = D;
-  p.DP = (D + 15) / 16 * 16;
   p.qb = st[0]; p.qs = st[1]; p.qh = st[2];
   p.kb = st[3]; p.ks = st[4]; p.kh = st[5];
   p.vb = st[6]; p.vs = st[7]; p.vh = st[8];
@@ -1194,23 +1518,21 @@ bool bad_shape(int B, int H, int Sq, int Sk, int D, int max_d) {
 
 // q, k, v, o: (B, S, H, D) device tensors with the strides in `strides` (12 int64:
 // B, S, H strides of q, k, v, o); dtype 0 = float32, 1 = bfloat16. Returns a
-// cudaError_t; 0 means the launch was accepted. K1 in bf16 takes D in {40, 80,
-// 160} with 16-byte aligned pointers and strides that are multiples of 8.
+// cudaError_t; 0 means the launch was accepted. K1 takes D in {40, 80, 160} with
+// 16-byte aligned pointers and strides that are multiples of 16 bytes.
 extern "C" int minsdtf_flash_onepass(const void* q, const void* k, const void* v, void* o,
                                      int B, int H, int Sq, int Sk, int D,
                                      const long long* strides, float scale, int dtype,
                                      void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D, 160)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, Sq, Sk, D, 160) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k, v, o, B, H, Sq, Sk, D, strides, scale);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (!aligned16(p, strides)) return (int)cudaErrorMisalignedAddress;
-    if (D == 40) return launch_bf16<40, EXP2_ROUNDED_SUM>(p, s);
-    if (D == 80) return launch_bf16<80, EXP2_ROUNDED_SUM>(p, s);
-    if (D == 160) return launch_bf16<160, EXP2_ROUNDED_SUM>(p, s);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (dtype == 0) return launch<float, 64, 64, true>(p, s);
+  if (!aligned16(p, strides, dtype == 1 ? 8 : 4)) return (int)cudaErrorMisalignedAddress;
+  if (dtype == 0) return launch_f32_width<EXP2_ROUNDED_SUM>(p, s);
+  if (D == 40) return launch_bf16<40, EXP2_ROUNDED_SUM>(p, s);
+  if (D == 80) return launch_bf16<80, EXP2_ROUNDED_SUM>(p, s);
+  if (D == 160) return launch_bf16<160, EXP2_ROUNDED_SUM>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1233,32 +1555,30 @@ extern "C" long long minsdtf_online_workspace_bytes(int B, int H, int Sq, int Sk
 }
 
 // The same arguments as minsdtf_flash_onepass, and `workspace`: device memory of
-// minsdtf_online_workspace_bytes bytes (nullptr when that is 0). K2 in bf16 takes
-// D in {40, 80, 160} (path A) or 512 (path B) with 16-byte aligned pointers,
-// strides that are multiples of 8 and scale > 0.
+// minsdtf_online_workspace_bytes bytes (nullptr when that is 0). K2 takes D in
+// {40, 80, 160, 512} in bf16 (path A, then path B) and {40, 80, 160, 192, 512} in
+// fp32, with 16-byte aligned pointers, strides that are multiples of 16 bytes and
+// scale > 0.
 extern "C" int minsdtf_flash_online(const void* q, const void* k, const void* v, void* o,
                                     int B, int H, int Sq, int Sk, int D,
                                     const long long* strides, float scale, int dtype,
                                     void* stream, void* workspace) {
-  if (bad_shape(B, H, Sq, Sk, D, 512)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, Sq, Sk, D, 512) || (dtype != 0 && dtype != 1) || !(scale > 0.f))
+    return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, o, B, H, Sq, Sk, D, strides, scale);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
-    if (!aligned16(p, strides)) return (int)cudaErrorMisalignedAddress;
-    if (D == 40) return launch_bf16<40, EXP_FP32_SUM>(p, s);
-    if (D == 80) return launch_bf16<80, EXP_FP32_SUM>(p, s);
-    if (D == 160) return launch_bf16<160, EXP_FP32_SUM>(p, s);
-    if (D == 512) {
-      p.splits = split_kv(B, H, Sq, Sk);
-      p.ws = static_cast<float*>(workspace);
-      if (p.splits > 1 && (p.ws == nullptr || reinterpret_cast<uintptr_t>(p.ws) % 16))
-        return (int)cudaErrorInvalidValue;
-      return launch_d512(p, s);
-    }
-    return (int)cudaErrorInvalidValue;
+  if (!aligned16(p, strides, dtype == 1 ? 8 : 4)) return (int)cudaErrorMisalignedAddress;
+  if (dtype == 0) return launch_f32_width<EXP_FP32_SUM>(p, s);
+  if (D == 40) return launch_bf16<40, EXP_FP32_SUM>(p, s);
+  if (D == 80) return launch_bf16<80, EXP_FP32_SUM>(p, s);
+  if (D == 160) return launch_bf16<160, EXP_FP32_SUM>(p, s);
+  if (D == 512) {
+    p.splits = split_kv(B, H, Sq, Sk);
+    p.ws = static_cast<float*>(workspace);
+    if (p.splits > 1 && (p.ws == nullptr || reinterpret_cast<uintptr_t>(p.ws) % 16))
+      return (int)cudaErrorInvalidValue;
+    return launch_d512(p, s);
   }
-  if (dtype == 0) return launch<float, 32, 32, false>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,8 +9,7 @@ versions, and the routing contract.
     p never leaving registers, one online sweep, and the row sum from a ones
     column on the tensor cores. At the UNet self-attention shape (16, 4096, 40)
     the 2.7e8 exponentials, not the 42.9 GFLOP of products, set the floor, so the
-    design keeps every other per-score instruction off the issue slots. fp32 keeps
-    a two-sweep FMA kernel for the parity runs.
+    design keeps every other per-score instruction off the issue slots.
   - K2, :func:`online_attention` (``minsdtf_flash_online``), replaces
     ``_kernel``: blockwise online softmax in the natural-exp domain, with the
     running (m, l, acc) carried over KV tiles and l summing the fp32 p. In bf16 it
@@ -19,7 +18,13 @@ versions, and the routing contract.
     exponentials set its floor, as for K1. Path B (d = 512; the VAE mid-block,
     (1, 4096, 1, 512) at 512px) splits the output width over blocks, one
     warpgroup each holding a 64 x 256 fp32 accumulator, so that 4096 rows of one
-    head fill the card. fp32 keeps a kernel with its state in shared memory.
+    head fill the card.
+  - In fp32 the products stay true fp32 FFMA, and the FFMA peak is the floor. K1
+    and K2 share one register-blocked body (head widths 40, 80, 160, and 192 for
+    K2), each with its own softmax convention: a lane keeps its tile of scores,
+    its rows' (m, l) and its outputs in registers over one online sweep, with K/V
+    tiles in a ``cp.async`` ring. K2 at d = 512 keeps Q and O in registers and
+    reduce-scatters the scores over the warp by shuffles.
 
 The source's header says what each kernel's design does about its bound.
 
@@ -31,12 +36,12 @@ tensors a wrapper raises ``RuntimeError`` when autograd would record its output
 gradient. Training selects the plain path by name
 (:func:`minsdtf_tpu_torch.ops.attention.plain_scope`); the CPU branch stays the
 differentiable plain version.
-Tensors are ``(B, S, H, D)`` and may be strided, with a contiguous D axis. The
-bf16 kernels are built for head widths 40, 80 and 160 (the SD1.5 levels over 8
-heads), and K2's also for 512 (the VAE), and read 16-byte rows: any other width,
-or a tensor whose pointer or strides are not 16-byte multiples, goes through a
+Tensors are ``(B, S, H, D)`` and may be strided, with a contiguous D axis. Each
+kernel is built for a few head widths (:data:`KERNEL_WIDTHS`: the SD1.5 levels
+over 8 heads, and K2's VAE widths) and reads 16-byte rows: any other width, or a
+tensor whose pointer or strides are not 16-byte multiples, goes through a
 zero-padded contiguous copy (:func:`pad_head_dim`; zero columns change no score
-and add nothing to p v) and the output is sliced back. The main path's tensors,
+and add nothing to p v) and the output is sliced back. The pipelines' tensors,
 fused ``to_qkv`` views included, need no copy.
 
 Routing keeps the JAX split (``supports`` / ``_use_onepass``): causal or kv < 512
@@ -58,9 +63,15 @@ LOG2E = 1.4426950408889634
 MIN_KV = 512
 ONEPASS_MAX_KV = 4096
 ONEPASS_MAX_D = 160
-ONEPASS_BF16_WIDTHS = (40, 80, 160)  # head widths K1's bf16 kernel is built for
 ONLINE_MAX_D = 512
-ONLINE_BF16_WIDTHS = (40, 80, 160, 512)  # K2's bf16 kernels: path A, then path B
+# The head widths each kernel is built for, by dtype: K1's; K2's bf16 path A, then
+# path B; K2's fp32 body, then its d = 512 kernel.
+KERNEL_WIDTHS = {
+    ("onepass", torch.bfloat16): (40, 80, 160),
+    ("onepass", torch.float32): (40, 80, 160),
+    ("online", torch.bfloat16): (40, 80, 160, 512),
+    ("online", torch.float32): (40, 80, 160, 192, 512),
+}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -77,26 +88,34 @@ def route(q_len: int, kv_len: int, head_dim: int, causal: bool = False) -> str:
     return "online"
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the type the plain versions accumulate in: fp32, or fp64 for fp64
+    inputs, which evaluates a kernel's function with fp64 rounding (the on-card
+    checks of the fp32 kernels hold them against that)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """(B, Sq, H, D) x (B, Sk, H, D) -> (B, H, Sq, Sk) fp32: exact products of the
-    input-type values, fp32 sums (what the kernels' fp32 accumulation computes)."""
-    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    """(B, Sq, H, D) x (B, Sk, H, D) -> (B, H, Sq, Sk): exact products of the
+    input-type values, fp32 sums (what the kernels' fp32 accumulation computes;
+    fp64 for fp64 inputs)."""
+    return torch.einsum("bqhd,bkhd->bhqk", _acc(q), _acc(k))
 
 
 def _weighted_sum(p_rounded: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, H, Sq, Sk) x (B, Sk, H, D) -> (B, Sq, H, D) fp32."""
-    return torch.einsum("bhqk,bkhd->bqhd", p_rounded.float(), v.float())
+    """(B, H, Sq, Sk) x (B, Sk, H, D) -> (B, Sq, H, D)."""
+    return torch.einsum("bhqk,bkhd->bqhd", _acc(p_rounded), _acc(v))
 
 
 def onepass_attention_plain(q, k, v, scale: float) -> torch.Tensor:
     """K1's function in plain PyTorch: scale*log2(e) folded into q and rounded to
     the input type, p = exp2(s - max) in fp32, p rounded to the V type, output
     ``sum(p v) / sum(p)`` over the rounded p, in the input type."""
-    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    qs = (_acc(q) * (scale * LOG2E)).to(q.dtype)
     s = _scores(qs, k)
     p = torch.exp2(s - s.amax(dim=-1, keepdim=True)).to(v.dtype)
     num = _weighted_sum(p, v)
-    den = p.float().sum(dim=-1).transpose(1, 2).unsqueeze(-1)  # (B, Sq, H, 1)
+    den = _acc(p).sum(dim=-1).transpose(1, 2).unsqueeze(-1)  # (B, Sq, H, 1)
     return (num / den).to(q.dtype)
 
 
@@ -111,15 +130,10 @@ def online_attention_plain(q, k, v, scale: float) -> torch.Tensor:
     return (num / den).to(q.dtype)
 
 
-def onepass_bf16_width(head_dim: int) -> int:
-    """The head width K1's bf16 kernel runs a ``head_dim``-wide call at."""
-    return next(w for w in ONEPASS_BF16_WIDTHS if w >= head_dim)
-
-
-def online_bf16_width(head_dim: int) -> int:
-    """The head width K2's bf16 kernels run a ``head_dim``-wide call at: 40, 80 or
-    160 (path A), else 512 (path B)."""
-    return next(w for w in ONLINE_BF16_WIDTHS if w >= head_dim)
+def kernel_width(kernel: str, dtype: torch.dtype, head_dim: int) -> int:
+    """The head width ``kernel`` ("onepass" or "online") runs a ``head_dim``-wide
+    call at in ``dtype``: the narrowest of :data:`KERNEL_WIDTHS` that holds it."""
+    return next(w for w in KERNEL_WIDTHS[kernel, dtype] if w >= head_dim)
 
 
 def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -131,8 +145,9 @@ def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def _rows_16b(t: torch.Tensor) -> bool:
-    """Whether every (B, S, H) row of a bf16 tensor starts on 16 bytes."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+    """Whether every (B, S, H) row of ``t`` starts on 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0
+                                          for s in t.stride()[:3])
 
 
 def _lib():
@@ -213,10 +228,10 @@ def _launch_online(q, k, v, scale: float) -> torch.Tensor:
     return _launch(lib.minsdtf_flash_online, q, k, v, scale, ws.data_ptr() if nbytes else None)
 
 
-def _launch_bf16(launch, q, k, v, scale: float, width: int) -> torch.Tensor:
-    """``launch`` for a bf16 kernel built for head width ``width``: inputs of
-    another width, or whose rows do not start on 16 bytes, go through
-    :func:`pad_head_dim`, and the output is sliced back."""
+def _launch_padded(launch, q, k, v, scale: float, width: int) -> torch.Tensor:
+    """``launch`` for a kernel built for head width ``width``: inputs of another
+    width, or whose rows do not start on 16 bytes, go through :func:`pad_head_dim`,
+    and the output is sliced back."""
     d = q.shape[-1]
     if width != d or not all(map(_rows_16b, (q, k, v))):
         q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
@@ -233,10 +248,8 @@ def onepass_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"onepass_attention: unsupported device {q.device}")
     _refuse_grad("onepass_attention", q, k, v)
     _check(q, k, v, ONEPASS_MAX_D)
-    if q.dtype == torch.bfloat16:
-        out = _launch_bf16(_launch_onepass, q, k, v, scale, onepass_bf16_width(q.shape[-1]))
-    else:
-        out = _launch_onepass(q, k, v, scale)
+    out = _launch_padded(_launch_onepass, q, k, v, scale,
+                         kernel_width("onepass", q.dtype, q.shape[-1]))
     onepass_attention.launches += 1
     return out
 
@@ -244,8 +257,8 @@ def onepass_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def positive_scale(k: torch.Tensor, scale: float) -> tuple[torch.Tensor, float]:
     """(k', scale') with ``scale' > 0`` whose scores (q k'^T) scale' equal (q k^T)
     scale bit for bit: a negative scale negates k, a zero scale zeroes it (both
-    exact). The bf16 kernels keep the running max on the unscaled scores, which is
-    the max of the scaled ones only for scale > 0."""
+    exact). K2's kernels keep the running max on the unscaled scores, which is the
+    max of the scaled ones only for scale > 0."""
     if scale < 0:
         return -k, -scale
     if scale == 0:
@@ -255,20 +268,17 @@ def positive_scale(k: torch.Tensor, scale: float) -> tuple[torch.Tensor, float]:
 
 def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float) -> torch.Tensor:
-    """K2 on (B, S, H, D) tensors; the plain version for CPU tensors. bf16 runs
-    path A at d <= 160 and path B above, with a scale of any sign
-    (:func:`positive_scale`)."""
+    """K2 on (B, S, H, D) tensors; the plain version for CPU tensors. A scale of
+    any sign runs as a positive one (:func:`positive_scale`)."""
     if q.device.type == "cpu":
         return online_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"online_attention: unsupported device {q.device}")
     _refuse_grad("online_attention", q, k, v)
     _check(q, k, v, ONLINE_MAX_D)
-    if q.dtype == torch.bfloat16:
-        k, scale = positive_scale(k, scale)
-        out = _launch_bf16(_launch_online, q, k, v, scale, online_bf16_width(q.shape[-1]))
-    else:
-        out = _launch_online(q, k, v, scale)
+    k, scale = positive_scale(k, scale)
+    out = _launch_padded(_launch_online, q, k, v, scale,
+                         kernel_width("online", q.dtype, q.shape[-1]))
     online_attention.launches += 1
     return out
 

@@ -85,6 +85,29 @@ def _qkv(b, sq, sk, h, d, dtype, layout, device, seed=0):
     ("online", 1, 300, 600, 1, 512, torch.bfloat16, "odd_stride"),     # copied to 16-byte rows
     ("online", 1, 2048, 2048, 1, 512, torch.bfloat16, "adversarial"),
     ("online", 1, 70, 20, 1, 512, torch.bfloat16, "contiguous"),       # one ragged KV tile
+    # fp32 (K1; K2's fp32 body at d <= 192, its d = 512 kernel)
+    ("onepass", 2, 4096, 4096, 8, 40, torch.float32, "fused_qkv"),    # the fp32 512px shapes
+    ("onepass", 2, 1024, 1024, 8, 80, torch.float32, "fused_qkv"),
+    ("online", 1, 4096, 4096, 1, 512, torch.float32, "fused_qkv"),
+    ("onepass", 1, 1000, 777, 2, 40, torch.float32, "contiguous"),    # ragged q and KV tiles
+    ("onepass", 1, 1000, 4095, 2, 40, torch.float32, "contiguous"),
+    ("onepass", 1, 1000, 777, 2, 80, torch.float32, "contiguous"),
+    ("onepass", 1, 1000, 4095, 2, 80, torch.float32, "contiguous"),
+    ("onepass", 1, 1000, 777, 2, 160, torch.float32, "contiguous"),
+    ("onepass", 1, 1000, 4095, 2, 160, torch.float32, "contiguous"),
+    ("onepass", 1, 1000, 777, 2, 36, torch.float32, "contiguous"),    # zero-padded to 40
+    ("onepass", 1, 1000, 777, 2, 40, torch.float32, "odd_stride"),    # copied to 16-byte rows
+    ("onepass", 1, 2048, 2048, 2, 40, torch.float32, "adversarial"),
+    ("online", 1, 1024, 5000, 2, 40, torch.float32, "contiguous"),    # past 4096 keys
+    ("online", 1, 1000, 5000, 2, 160, torch.float32, "contiguous"),
+    ("online", 1, 1000, 1000, 1, 192, torch.float32, "contiguous"),   # the small VAE's width
+    ("online", 1, 1000, 1000, 1, 512, torch.float32, "contiguous"),   # ragged q and KV tiles
+    ("online", 1, 70, 20, 1, 512, torch.float32, "contiguous"),       # one ragged KV tile
+    ("online", 1, 300, 1000, 1, 300, torch.float32, "contiguous"),    # zero-padded to 512
+    ("online", 1, 1000, 5000, 2, 36, torch.float32, "contiguous"),    # zero-padded to 40
+    ("online", 1, 1000, 5000, 2, 40, torch.float32, "odd_stride"),    # copied to 16-byte rows
+    ("online", 1, 2048, 8192, 2, 40, torch.float32, "adversarial"),
+    ("online", 1, 2048, 2048, 1, 512, torch.float32, "adversarial"),
 ])
 def test_kernel_matches_plain(cuda, kernel, b, sq, sk, h, d, dtype, layout):
     wrapper = getattr(tfa, f"{kernel}_attention")
@@ -96,9 +119,12 @@ def test_kernel_matches_plain(cuda, kernel, b, sq, sk, h, d, dtype, layout):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
-    want = plain(q, k, v, scale)
+    if dtype == torch.float32:  # the function itself: fp32's own rounding nears TOL
+        got, want = got.double(), plain(q.double(), k.double(), v.double(), scale)
+    else:
+        got, want = got.float(), plain(q, k, v, scale).float()
     rtol, atol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -119,19 +145,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tfa.onepass_attention(*wide, 0.1)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [40, 512])
 @pytest.mark.parametrize("sign", [-1, 0])
-def test_online_bf16_takes_any_scale(cuda, d, sign):
-    """K2's bf16 paths keep the running max on the unscaled scores; the wrapper
-    hands them a positive scale with the same scores (:func:`positive_scale`)."""
-    q, k, v = _qkv(1, 300, 1000, 2, d, torch.bfloat16, "contiguous", cuda)
+def test_online_bf16_takes_any_scale(cuda, d, sign, dtype):
+    """K2's kernels (bf16 and fp32) keep the running max on the unscaled scores;
+    the wrapper hands them a positive scale with the same scores
+    (:func:`positive_scale`)."""
+    q, k, v = _qkv(1, 300, 1000, 2, d, dtype, "contiguous", cuda)
     scale = sign * d ** -0.5
     before = tfa.online_attention.launches
     got = tfa.online_attention(q, k, v, scale)
     torch.cuda.synchronize()
     assert tfa.online_attention.launches == before + 1
     want = tfa.online_attention_plain(q, k, v, scale)
-    rtol, atol = TOL[torch.bfloat16]
+    rtol, atol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 

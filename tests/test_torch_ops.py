@@ -162,17 +162,23 @@ def test_wrappers_use_plain_version_on_cpu():
     assert (tfa.onepass_attention.launches, tfa.online_attention.launches) == before
 
 
-@pytest.mark.parametrize("kernel,d,width", [
-    *(pytest.param("onepass", d, w, id=f"{d}-{w}") for d, w in ((8, 40), (36, 40), (72, 80))),
-    *(pytest.param("online", d, w, id=f"online-{d}-{w}")
+@pytest.mark.parametrize("kernel,dtype,d,width", [
+    *(pytest.param("onepass", torch.bfloat16, d, w, id=f"{d}-{w}")
+      for d, w in ((8, 40), (36, 40), (72, 80))),
+    *(pytest.param("online", torch.bfloat16, d, w, id=f"online-{d}-{w}")
       for d, w in ((8, 40), (40, 40), (72, 80), (160, 160), (192, 512), (512, 512))),
+    *(pytest.param("onepass", torch.float32, d, w, id=f"fp32-{d}-{w}")
+      for d, w in ((8, 40), (36, 40), (72, 80), (100, 160))),
+    *(pytest.param("online", torch.float32, d, w, id=f"online-fp32-{d}-{w}")
+      for d, w in ((36, 40), (72, 80), (160, 160), (170, 192), (192, 192), (200, 512))),
 ])
-def test_onepass_pad_path(kernel, d, width):
-    """The bf16 kernels, K1's first, run other head widths zero-padded to the next
-    width they are built for (K1: 40/80/160; K2: 40/80/160 on path A, 512 on path
-    B): the padded call, sliced, equals the unpadded one (plain version)."""
+def test_onepass_pad_path(kernel, dtype, d, width):
+    """The kernels, K1's first, run other head widths zero-padded to the next width
+    they are built for (``KERNEL_WIDTHS``; K2's bf16: 40/80/160 on path A, 512 on
+    path B; its fp32: 40/80/160/192, then 512): the padded call, sliced, equals
+    the unpadded one (plain version)."""
     q, k, v = (_t(a) for a in _qkv(2, 64, 96, 3, d, seed=d))
-    assert getattr(tfa, f"{kernel}_bf16_width")(d) == width
+    assert tfa.kernel_width(kernel, dtype, d) == width
     padded = [tfa.pad_head_dim(t, width) for t in (q, k, v)]
     for t, pt in zip((q, k, v), padded):
         assert pt.shape == (*t.shape[:-1], width) and pt.is_contiguous()
@@ -182,6 +188,27 @@ def test_onepass_pad_path(kernel, d, width):
     got = plain(*padded, scale)
     torch.testing.assert_close(got[..., :d], plain(q, k, v, scale), rtol=1e-6, atol=1e-6)
     assert not got[..., d:].any()
+
+
+@pytest.mark.parametrize("dtype,layout,aligned", [
+    (torch.float32, "contiguous", True),
+    (torch.float32, "fused_qkv", True),       # the UNet's to_qkv views: no copy
+    (torch.float32, "odd_stride", False),     # rows 4 bytes apart from 16-byte starts
+    (torch.bfloat16, "fused_qkv", True),
+    (torch.bfloat16, "odd_stride", False),
+])
+def test_rows_16b(dtype, layout, aligned):
+    """Which inputs the kernels take as they are, and which go through the
+    zero-padded copy: every (B, S, H) row must start on 16 bytes."""
+    b, s, h, d = 1, 8, 2, 40
+    if layout == "fused_qkv":
+        x = torch.zeros(b, s, 3 * h * d, dtype=dtype)
+        ts = [t.unflatten(-1, (h, d)) for t in x.chunk(3, dim=-1)]
+    elif layout == "odd_stride":
+        ts = [torch.zeros(b, s, h, d + 1, dtype=dtype)[..., :d] for _ in range(3)]
+    else:
+        ts = [torch.zeros(b, s, h, d, dtype=dtype) for _ in range(3)]
+    assert all(tfa._rows_16b(t) == aligned for t in ts)
 
 
 @pytest.mark.parametrize("scale", [-0.3, 0.0, 0.2])
