@@ -20,7 +20,10 @@ reference back outside the mask, in the latent each step and in the image at the
 end. ``control_net_image`` runs the ControlNet before each UNet call. Images and
 masks are numpy arrays (a path string needs PIL). ``generate_images`` queues
 several requests before it fetches any (``_defer_fetch``, :func:`fetch`); prompt
-contexts and schedules are cached per pipeline.
+contexts and schedules are cached per pipeline. While a ``torch.profiler``
+profile runs, the host's work records spans (:mod:`profiling`): ``encode`` and
+``encode.clip``, ``prep.noise``, ``prep.schedule``, ``prep.reference``,
+``prep.upload``, ``prep.hint``, the sampler's ``program.run`` and ``fetch``.
 
 Weights: ``unet_ckpt``, ``text_encoder_ckpt``, ``vae_ckpt`` and ``controlnet_path``
 take a checkpoint file (LDM single-file or diffusers layout, ``.safetensors`` or a
@@ -89,7 +92,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from minsdtf_tpu_torch import imaging
+from minsdtf_tpu_torch import imaging, profiling
 from minsdtf_tpu_torch import rng as rng_lib
 from minsdtf_tpu_torch import sampler
 from minsdtf_tpu_torch import scheduler as sched_lib
@@ -143,9 +146,10 @@ def fetch(handle) -> np.ndarray:
     """A result of ``generate_image(..., _defer_fetch=True)`` as numpy: a tensor is
     copied to the host, which waits for every kernel queued on the card's stream
     before the copy; anything else goes through ``np.asarray``."""
-    if isinstance(handle, torch.Tensor):
-        return handle.cpu().numpy()
-    return np.asarray(handle)
+    with profiling.span("fetch"):
+        if isinstance(handle, torch.Tensor):
+            return handle.cpu().numpy()
+        return np.asarray(handle)
 
 
 def _existing(path, kind: str) -> str:
@@ -408,24 +412,27 @@ class StableDiffusion:
         whether the unconditional row had been encoded yet: the first encode
         carries that row as one more batch row, which on the card changes the
         context's last bits. The cached tensor is returned as it is; no caller
-        writes into it."""
-        key = None
-        if embedding_data is None:
-            key = (prompt if isinstance(prompt, str) else tuple(prompt), self._uncond is not None)
-            hit = self._prompt_cache.get(key)
-            if hit is not None:
-                return hit
-        embedding = textual_inversion.embedding_matrix(embedding_data)
-        context = lpw.get_weighted_text_embeddings(
-            self.tokenizer, self._fused_text_call, prompt,
-            model_max_length=MAX_PROMPT_LENGTH, pad_token_id=PAD_TOKEN_ID,
-            embedding=None if embedding is None else embedding[None],
-            embedding_tokens_count=0 if embedding is None else embedding.shape[0])
-        if key is not None:
-            if len(self._prompt_cache) >= PROMPT_CACHE_SIZE:
-                self._prompt_cache.pop(next(iter(self._prompt_cache)))
-            self._prompt_cache[key] = context
-        return context
+        writes into it. Its span ``encode`` counts the context's 77-token chunks
+        (0 for a cache hit)."""
+        with profiling.span("encode", n=0) as sp:
+            key = None
+            if embedding_data is None:
+                key = (prompt if isinstance(prompt, str) else tuple(prompt), self._uncond is not None)
+                hit = self._prompt_cache.get(key)
+                if hit is not None:
+                    return hit
+            embedding = textual_inversion.embedding_matrix(embedding_data)
+            context = lpw.get_weighted_text_embeddings(
+                self.tokenizer, self._fused_text_call, prompt,
+                model_max_length=MAX_PROMPT_LENGTH, pad_token_id=PAD_TOKEN_ID,
+                embedding=None if embedding is None else embedding[None],
+                embedding_tokens_count=0 if embedding is None else embedding.shape[0])
+            sp.n = context.shape[1] // MAX_PROMPT_LENGTH
+            if key is not None:
+                if len(self._prompt_cache) >= PROMPT_CACHE_SIZE:
+                    self._prompt_cache.pop(next(iter(self._prompt_cache)))
+                self._prompt_cache[key] = context
+            return context
 
     @torch.inference_mode()
     def _fused_text_call(self, token_array, weight_array, embedding, splice_n,
@@ -434,19 +441,20 @@ class StableDiffusion:
         unconditional context is unset it is encoded as one more batch row."""
         want_uncond = self._uncond is None
         tok = self.tokenizer
-        context, uncond = clip_lib.fused_lpw_encode(
-            self.text_model,
-            to_device(token_array, self.device, torch.long),
-            None if weight_array is None else to_device(weight_array, self.device),
-            None if embedding is None else to_device(embedding, self.device),
-            m=(token_array.shape[1] - 2) // (MAX_PROMPT_LENGTH - 2),
-            splice_n=int(splice_n),
-            with_uncond=want_uncond,
-            no_boseos_middle=bool(no_boseos_middle),
-            clip_skip=self.clip_skip,
-            bos=int(tok.start_of_text),
-            eot=int(tok.end_of_text),
-        )
+        with profiling.span("encode.clip"):
+            context, uncond = clip_lib.fused_lpw_encode(
+                self.text_model,
+                to_device(token_array, self.device, torch.long),
+                None if weight_array is None else to_device(weight_array, self.device),
+                None if embedding is None else to_device(embedding, self.device),
+                m=(token_array.shape[1] - 2) // (MAX_PROMPT_LENGTH - 2),
+                splice_n=int(splice_n),
+                with_uncond=want_uncond,
+                no_boseos_middle=bool(no_boseos_middle),
+                clip_skip=self.clip_skip,
+                bos=int(tok.start_of_text),
+                eot=int(tok.end_of_text),
+            )
         if want_uncond:
             self._uncond = uncond
         return context
@@ -472,8 +480,9 @@ class StableDiffusion:
     def _unconditional_context(self) -> torch.Tensor:
         """[BOS] + [EOT]*76 through embed + encode, bypassing LPW; cached."""
         if self._uncond is None:
-            tokens = to_device(clip_lib.uncond_tokens(), self.device)
-            self._uncond = clip_lib.encode_tokens(self.text_model, tokens, self.clip_skip)
+            with profiling.span("encode.clip"):
+                tokens = to_device(clip_lib.uncond_tokens(), self.device)
+                self._uncond = clip_lib.encode_tokens(self.text_model, tokens, self.clip_skip)
         return self._uncond
 
     def _device_schedule(self, num_steps: int, strength: Optional[float], eta: float):
@@ -661,7 +670,8 @@ class StableDiffusion:
             raise ValueError("`control_net_image` needs a ControlNet; none is loaded")
         h8, w8 = self.img_height // 8, self.img_width // 8
         rows = self._data_rows(batch_size)
-        context = to_device(encoded_text, self.device, torch.float32)
+        with profiling.span("prep.upload"):
+            context = to_device(encoded_text, self.device, torch.float32)
         if context.dim() == 2:
             context = context[None]
         uncond = None
@@ -670,53 +680,59 @@ class StableDiffusion:
                       if negative_prompt is None and negative_embedding is None
                       else self._encode_text_dev(negative_prompt or "", negative_embedding))
 
-        if diffusion_noise is not None:
-            noise = np.squeeze(np.asarray(diffusion_noise, np.float32))
-            if noise.ndim == 3:
-                noise = np.repeat(noise[None], batch_size, axis=0)
-        else:
-            if seed is None:
-                seed = int(np.random.randint(0, 2**31 - 1))
-            noise = rng_lib.stateless_normal((batch_size, h8, w8, 4), seed)
+        with profiling.span("prep.noise", n=batch_size):
+            if diffusion_noise is not None:
+                noise = np.squeeze(np.asarray(diffusion_noise, np.float32))
+                if noise.ndim == 3:
+                    noise = np.repeat(noise[None], batch_size, axis=0)
+            else:
+                if seed is None:
+                    seed = int(np.random.randint(0, 2**31 - 1))
+                noise = rng_lib.stateless_normal((batch_size, h8, w8, 4), seed)
         # the stochastic samplers' step noise: from the seed, or from a fresh seed
         # when the caller gives the initial noise
         key_seed = seed if seed is not None else int(np.random.randint(0, 2**31 - 1))
 
         use_img2img = reference_image is not None and 0.0 < reference_image_strength < 1.0
         strength = float(reference_image_strength) if use_img2img else None
-        schedule, t_embs = self._device_schedule(num_steps, strength, eta)
+        with profiling.span("prep.schedule"):
+            schedule, t_embs = self._device_schedule(num_steps, strength, eta)
         inpaint = None
         if use_img2img:
-            image01, image_tensor = imaging.preprocess_image(
-                reference_image, self.img_height, self.img_width)
-            init_latent = self._encode_image(image_tensor)
-            # fp32 on the host, rounded as the JAX pipeline rounds it: the signal
-            # term in float64, the noise term in fp32
-            t0 = schedule.init_timestep
-            latent0 = ((self.scheduler.signal_rates[t0]
-                        * np.repeat(init_latent, batch_size, axis=0)).astype(np.float32)
-                       + np.float32(self.scheduler.noise_rates[t0]) * noise)
-            if inpaint_mask is not None:
-                pixel_mask, latent_mask = imaging.preprocess_mask(
-                    inpaint_mask, self.img_height, self.img_width, mask_blur_strength)
-                inpaint = sampler.Inpaint(*(
-                    rows(to_device(a, self.device))
-                    for a in (init_latent, noise, latent_mask, image01, pixel_mask)))
+            with profiling.span("prep.reference", n=batch_size):
+                image01, image_tensor = imaging.preprocess_image(
+                    reference_image, self.img_height, self.img_width)
+                init_latent = self._encode_image(image_tensor)
+                # fp32 on the host, rounded as the JAX pipeline rounds it: the signal
+                # term in float64, the noise term in fp32
+                t0 = schedule.init_timestep
+                latent0 = ((self.scheduler.signal_rates[t0]
+                            * np.repeat(init_latent, batch_size, axis=0)).astype(np.float32)
+                           + np.float32(self.scheduler.noise_rates[t0]) * noise)
+                if inpaint_mask is not None:
+                    pixel_mask, latent_mask = imaging.preprocess_mask(
+                        inpaint_mask, self.img_height, self.img_width, mask_blur_strength)
+                    inpaint = sampler.Inpaint(*(
+                        rows(to_device(a, self.device))
+                        for a in (init_latent, noise, latent_mask, image01, pixel_mask)))
         else:
             latent0 = noise
-        latent0 = to_device(latent0, self.device).to(self.compute_dtype)
+        with profiling.span("prep.upload"):
+            latent0 = to_device(latent0, self.device).to(self.compute_dtype)
 
         hint = None
         if control_net_image is not None:
-            arr = imaging.bilinear_resize(imaging.load_image(control_net_image, "RGB"),
-                                          self.img_height, self.img_width)
-            cn_img = np.tile((np.asarray(arr, np.float32) / 255.0)[None], (batch_size, 1, 1, 1))
-            hint = rows(self._hint(cn_img))
+            with profiling.span("prep.hint", n=batch_size):
+                arr = imaging.bilinear_resize(imaging.load_image(control_net_image, "RGB"),
+                                              self.img_height, self.img_width)
+                cn_img = np.tile((np.asarray(arr, np.float32) / 255.0)[None], (batch_size, 1, 1, 1))
+                hint = rows(self._hint(cn_img))
 
         step_noise = None
         if schedule.mode in sampler.NOISY_MODES or (schedule.mode == "tcd" and eta > 0.0):
-            step_noise = draw_step_noise(key_seed, (schedule.num_steps, *latent0.shape))
-            step_noise = rows(to_device(step_noise, self.device), 1)
+            with profiling.span("prep.noise", n=batch_size):
+                step_noise = draw_step_noise(key_seed, (schedule.num_steps, *latent0.shape))
+                step_noise = rows(to_device(step_noise, self.device), 1)
         # a mesh's collectives cannot be captured: it runs the step loop
         loop = (functools.partial(sampler.generate, programs=self._programs)
                 if self.mesh is None else sampler._generate_eager)

@@ -73,6 +73,7 @@ from typing import Callable, Dict, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
+from minsdtf_tpu_torch import profiling
 from minsdtf_tpu_torch.ops import attention as attention_ops
 from minsdtf_tpu_torch.ops import basic
 from minsdtf_tpu_torch.ops import flash_attention as fa
@@ -260,45 +261,47 @@ def _run(unet, decoder, latent0, context, uncond_context, t_embs, rows, guidance
          trace_latents, programs: Optional["ProgramCache"]):
     """The setup of one call, then the body's steps and the decode on a program:
     one made for this call and run uncaptured when ``programs`` is None, else the
-    cache's program of the call's signature, under the cache's lock."""
-    _check_args(mode, step_noise, latent0, t_embs)
-    latent0, inpaint, step_noise = _dense(latent0, inpaint, step_noise)
-    device = latent0.device
-    dtype = latent0.dtype
-    wide = stats_dtype(dtype)  # the update's dtype: fp32, fp64 in fp64
-    use_cfg = uncond_context is not None
-    statics = dict(_prepare(latent0, context, uncond_context, controlnet, hint), latent=latent0)
-    row_keys, table = row_table(rows)
-    # the CFG scalars rounded to the compute dtype, as the JAX sampler casts them,
-    # and 1 - g in double; one copy to the device with the rows, then the update's dtype
-    gs, g = (torch.tensor(float(s), dtype=dtype).item() for s in (guidance_scale, guidance_rescale))
-    flat = _upload(np.concatenate([table.reshape(-1), [gs, g, 1.0 - g]]), device).to(wide)
-    rows_dev = flat[:table.size].view(table.shape)
-    if use_cfg:
-        statics.update(guidance_scale=flat[-3].to(dtype), guidance_rescale=flat[-2].to(dtype),
-                       one_minus_rescale=flat[-1])
-    if inpaint is not None:
-        statics.update(init_latent=inpaint.init_latent, blend_noise=inpaint.noise,
-                       latent_mask=inpaint.latent_mask)
-        if decoder is not None:
-            statics.update(image01=inpaint.image01, pixel_mask=inpaint.pixel_mask)
-    t_embs = t_embs.to(dtype)
-    fed = {"row": rows_dev[0], "t_emb": t_embs[:1]}
-    if step_noise is not None:
-        fed["z"] = step_noise[0]
-    if mode == "dpm":
-        fed["x0_prev"] = torch.zeros(latent0.shape, dtype=wide, device=device)
-    flags = _Flags(mode, bool(v_prediction), use_cfg, "ctx_pair" in statics, inpaint is not None,
-                   row_keys)
-    buffers = {**statics, **fed}
-    steps = (statics, rows_dev, t_embs, step_noise, trace_latents, callback)
-    if programs is None:
-        return _Program(flags, buffers, unet, decoder, controlnet, capture=False).run(*steps, None)
-    key = program_key(flags, buffers, (unet, decoder, controlnet))
-    with programs.lock:
-        program = programs.get(key, lambda: _Program(flags, buffers, unet, decoder, controlnet,
-                                                      capture=True))
-        return program.run(*steps, programs)
+    cache's program of the call's signature, under the cache's lock; all of it the
+    span ``program.run``, with the batch."""
+    with profiling.span("program.run", n=latent0.shape[0]):
+        _check_args(mode, step_noise, latent0, t_embs)
+        latent0, inpaint, step_noise = _dense(latent0, inpaint, step_noise)
+        device = latent0.device
+        dtype = latent0.dtype
+        wide = stats_dtype(dtype)  # the update's dtype: fp32, fp64 in fp64
+        use_cfg = uncond_context is not None
+        statics = dict(_prepare(latent0, context, uncond_context, controlnet, hint), latent=latent0)
+        row_keys, table = row_table(rows)
+        # the CFG scalars rounded to the compute dtype, as the JAX sampler casts them,
+        # and 1 - g in double; one copy to the device with the rows, then the update's dtype
+        gs, g = (torch.tensor(float(s), dtype=dtype).item() for s in (guidance_scale, guidance_rescale))
+        flat = _upload(np.concatenate([table.reshape(-1), [gs, g, 1.0 - g]]), device).to(wide)
+        rows_dev = flat[:table.size].view(table.shape)
+        if use_cfg:
+            statics.update(guidance_scale=flat[-3].to(dtype), guidance_rescale=flat[-2].to(dtype),
+                           one_minus_rescale=flat[-1])
+        if inpaint is not None:
+            statics.update(init_latent=inpaint.init_latent, blend_noise=inpaint.noise,
+                           latent_mask=inpaint.latent_mask)
+            if decoder is not None:
+                statics.update(image01=inpaint.image01, pixel_mask=inpaint.pixel_mask)
+        t_embs = t_embs.to(dtype)
+        fed = {"row": rows_dev[0], "t_emb": t_embs[:1]}
+        if step_noise is not None:
+            fed["z"] = step_noise[0]
+        if mode == "dpm":
+            fed["x0_prev"] = torch.zeros(latent0.shape, dtype=wide, device=device)
+        flags = _Flags(mode, bool(v_prediction), use_cfg, "ctx_pair" in statics, inpaint is not None,
+                       row_keys)
+        buffers = {**statics, **fed}
+        steps = (statics, rows_dev, t_embs, step_noise, trace_latents, callback)
+        if programs is None:
+            return _Program(flags, buffers, unet, decoder, controlnet, capture=False).run(*steps, None)
+        key = program_key(flags, buffers, (unet, decoder, controlnet))
+        with programs.lock:
+            program = programs.get(key, lambda: _Program(flags, buffers, unet, decoder, controlnet,
+                                                          capture=True))
+            return program.run(*steps, programs)
 
 
 # ---- the program -------------------------------------------------------------------
@@ -565,36 +568,38 @@ class ProgramCache:
 
     def capture_graph(self, fn):
         """``(graph, counter changes, fn's output, seconds)`` of ``fn`` captured
-        into this cache's pool; the counters read as they did before."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        pool = self._pool
-        graph = torch.cuda.CUDAGraph()
-        before = _counts()
-        t0 = time.perf_counter()
-        torch.cuda.synchronize()
-        try:
-            with torch.cuda.stream(self._capture_stream()):
-                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    out = fn()
-                finally:
+        into this cache's pool, in the span ``program.capture``; the counters read
+        as they did before."""
+        with profiling.span("program.capture"):
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            pool = self._pool
+            graph = torch.cuda.CUDAGraph()
+            before = _counts()
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            try:
+                with torch.cuda.stream(self._capture_stream()):
+                    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                     try:
-                        graph.capture_end()
-                    except BaseException:
-                        # PyTorch's capture_end raises before it stops the allocator
-                        # recording into the pool: stop it and give back the
-                        # capture's hold on the pool, as cudagraph_trees does; the
-                        # pool may be gone then, so later captures take a new one
-                        device = torch.cuda.current_device()
-                        torch._C._cuda_endAllocateToPool(device, pool)
-                        torch._C._cuda_releasePool(device, pool)
-                        self._pool = None
-                        raise
-            changes = [a - b for a, b in zip(_counts(), before)]
-        finally:
-            _set_counts(before)
-        return graph, changes, out, time.perf_counter() - t0
+                        out = fn()
+                    finally:
+                        try:
+                            graph.capture_end()
+                        except BaseException:
+                            # PyTorch's capture_end raises before it stops the allocator
+                            # recording into the pool: stop it and give back the
+                            # capture's hold on the pool, as cudagraph_trees does; the
+                            # pool may be gone then, so later captures take a new one
+                            device = torch.cuda.current_device()
+                            torch._C._cuda_endAllocateToPool(device, pool)
+                            torch._C._cuda_releasePool(device, pool)
+                            self._pool = None
+                            raise
+                changes = [a - b for a, b in zip(_counts(), before)]
+            finally:
+                _set_counts(before)
+            return graph, changes, out, time.perf_counter() - t0
 
     def pool_bytes(self) -> Optional[int]:
         """The bytes of device memory the pool holds (None before a capture)."""

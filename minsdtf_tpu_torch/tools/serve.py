@@ -28,6 +28,12 @@ Design (one card = one worker; standard library only):
     (PERF.md).
   - requests carry either a ``prompt`` (tokenized through the pipeline's BPE) or a
     precomputed ``context`` (base64 fp32), which needs no vocabulary.
+  - while a ``torch.profiler`` profile runs, the worker records host spans
+    (:mod:`minsdtf_tpu_torch.profiling`): ``serve.wait`` (blocked on an empty
+    queue), ``serve.merge`` (the merge window), ``serve.dispatch`` and
+    ``serve.fetch`` (with the images and the request ids), and for each request
+    ``serve.queue`` (enqueue to its call's dispatch) and ``serve.inflight``
+    (dispatch to its image handed back), under the request's id.
 
 Endpoints:
   POST /generate  {"prompt": str | "context": b64, "context_shape"?,
@@ -45,6 +51,7 @@ from __future__ import annotations
 
 import base64
 import io
+import itertools
 import json
 import queue
 import sys
@@ -57,19 +64,27 @@ from typing import Optional
 import numpy as np
 import torch
 
+from minsdtf_tpu_torch import profiling
 from minsdtf_tpu_torch import rng as rng_lib
 from minsdtf_tpu_torch.pipeline import fetch, to_device
 
 
 class _Request:
-    __slots__ = ("payload", "event", "result", "error", "t_enqueue")
+    """One queued request: its id and its enqueue time on the spans' clock
+    (``time.time_ns()``, which the served latency is read from too) name it in the
+    worker's spans."""
+
+    __slots__ = ("payload", "event", "result", "error", "id", "t_ns", "t_dispatch_ns")
+    _ids = itertools.count()
 
     def __init__(self, payload: dict):
         self.payload = payload
         self.event = threading.Event()
         self.result = None
         self.error: Optional[str] = None
-        self.t_enqueue = time.perf_counter()
+        self.id = next(self._ids)
+        self.t_ns = time.time_ns()
+        self.t_dispatch_ns = None
 
 
 class BatchingWorker:
@@ -200,16 +215,21 @@ class BatchingWorker:
 
     def _finish(self, reqs, handle):
         try:
-            arr = fetch(handle)  # waits for the card's queue up to here
-            now = time.perf_counter()
+            with profiling.span("serve.fetch", n=len(reqs), req=reqs):
+                arr = fetch(handle)  # waits for the card's queue up to here
+            now_ns = time.time_ns()
             for i, req in enumerate(reqs):
                 req.result = arr[i : i + 1] if len(reqs) > 1 else arr
                 self.served += 1
-                self.total_latency += now - req.t_enqueue
+                self.total_latency += (now_ns - req.t_ns) / 1e9
         except Exception as e:  # a device failure fails these requests, not the worker
             for req in reqs:
                 req.error = f"{type(e).__name__}: {e}"
         finally:
+            if profiling.recording():
+                done_ns = time.time_ns()
+                for req in reqs:
+                    profiling.mark("serve.inflight", req.t_dispatch_ns, done_ns, req=req.id)
             for req in reqs:
                 req.event.set()
 
@@ -220,7 +240,8 @@ class BatchingWorker:
         """Pop the oldest request plus every queued request compatible with it
         (up to ``max_batch``); incompatible ones stay pending in arrival order."""
         try:
-            self._pending.append(self.requests.get(timeout=0.1))
+            with profiling.span("serve.wait"):
+                self._pending.append(self.requests.get(timeout=0.1))
             while True:
                 self._pending.append(self.requests.get_nowait())
         except queue.Empty:
@@ -229,15 +250,16 @@ class BatchingWorker:
             return []
         if self.can_merge and len(self._pending) < self.max_batch:
             # accumulation window: a burst's stragglers arrive ms after its head
-            deadline = time.perf_counter() + self.merge_window_s
-            while len(self._pending) < self.max_batch:
-                remaining = deadline - time.perf_counter()
-                if remaining <= 0:
-                    break
-                try:
-                    self._pending.append(self.requests.get(timeout=remaining))
-                except queue.Empty:
-                    break
+            with profiling.span("serve.merge"):
+                deadline = time.perf_counter() + self.merge_window_s
+                while len(self._pending) < self.max_batch:
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    try:
+                        self._pending.append(self.requests.get(timeout=remaining))
+                    except queue.Empty:
+                        break
         first = self._pending.popleft()
         if not self.can_merge:
             return [first]
@@ -266,11 +288,18 @@ class BatchingWorker:
                 while self.inflight:
                     self._finish(*self.inflight.popleft())
                 continue
+            t_ns = time.time_ns()
+            for req in batch:
+                req.t_dispatch_ns = t_ns
+            if profiling.recording():
+                for req in batch:
+                    profiling.mark("serve.queue", req.t_ns, t_ns, req=req.id)
             try:
-                if len(batch) > 1:
-                    dispatched = self._dispatch_merged(batch)
-                else:
-                    dispatched = [([batch[0]], self._dispatch(batch[0]))]
+                with profiling.span("serve.dispatch", n=len(batch), req=batch):
+                    if len(batch) > 1:
+                        dispatched = self._dispatch_merged(batch)
+                    else:
+                        dispatched = [([batch[0]], self._dispatch(batch[0]))]
             except Exception as e:  # a bad request fails itself, not the worker
                 for req in batch:
                     req.error = f"{type(e).__name__}: {e}"

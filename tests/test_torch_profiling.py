@@ -1,30 +1,11 @@
-"""The port's profiling module on the CPU: the analytic FLOP model against the JAX
-package's, the card's bf16 peak by name, the kernel groups, ``op_report`` over a
-CPU-only ``torch.profiler`` profile, and ``timed``."""
+"""The port's profiling module on the CPU: the kernel groups and ``op_report`` over
+a CPU-only ``torch.profiler`` profile (the host spans: ``test_torch_tracing.py``)."""
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from minsdtf_tpu import profiling as jprofiling
 from minsdtf_tpu_torch import profiling
-
-
-@pytest.mark.parametrize("height,width,steps,batch,cfg", [
-    (512, 512, 25, 1, True), (1024, 1024, 25, 1, True), (512, 768, 4, 8, False)])
-def test_generation_flops_match_jax(height, width, steps, batch, cfg):
-    assert profiling.generation_flops(height, width, steps, batch, cfg) == \
-        jprofiling.generation_flops(height, width, steps, batch, cfg)
-
-
-def test_chip_peak_flops_by_card_name():
-    assert profiling.chip_peak_flops("NVIDIA H100 80GB HBM3") == 989e12
-    with pytest.raises(ValueError, match="no bf16 peak"):
-        profiling.chip_peak_flops("TPU v5 lite")
-    report = profiling.utilization_report(1.0, 512, 512, 25, name="NVIDIA H100 80GB HBM3")
-    assert report["peak_tflops"] == 989.0
-    assert report["utilization"] == pytest.approx(
-        profiling.generation_flops(512, 512, 25) / 989e12)
 
 
 @pytest.mark.parametrize("name,group", [
@@ -58,9 +39,3 @@ def test_op_report_buckets_a_cpu_profile(capsys):
     assert profiling.op_report(prof, top=None) == {}  # no device events in a CPU profile
     with pytest.raises(ValueError, match="by must be"):
         profiling.op_report(prof, by="source")
-
-
-def test_timed_on_the_cpu(capsys):
-    with profiling.timed("block", device="cpu") as out:
-        sum(range(1000))
-    assert out["seconds"] >= 0 and "[block]" in capsys.readouterr().out
