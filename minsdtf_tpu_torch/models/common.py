@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from minsdtf_tpu_torch.ops.basic import (
-    Padding, conv2d, dense, group_norm, group_norm_silu, int8_conv2d, int8_dense,
+    Padding, channels_last, conv2d, dense, group_norm, group_norm_silu, int8_conv2d, int8_dense,
     upsample2x_conv3x3,
 )
 from minsdtf_tpu_torch.parallel import spatial
@@ -54,11 +54,15 @@ def build(factory: Callable[[], nn.Module], device, seed: int, scale: float = 0.
 
 
 def cast_weights_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Conv / dense kernels and embeddings to ``dtype`` (the compute dtype);
-    biases, norm parameters and :class:`Int8Site` buffers stay as they are."""
+    """Conv / dense kernels and embeddings to ``dtype`` (the compute dtype), in
+    place; conv kernels also channels-last (:func:`ops.basic.channels_last`), once,
+    with no OIHW copy kept, so that no convolution transposes its weight. Biases,
+    norm parameters and :class:`Int8Site` buffers stay as they are. LoRA deltas
+    and int8 sites are made from the fp32 weights before this."""
     for m in module.modules():
         if isinstance(m, _WEIGHT_MODULES):
-            m.weight.data = m.weight.data.to(dtype)
+            w = m.weight.data
+            m.weight.data = channels_last(w, dtype) if w.dim() == 4 else w.to(dtype)
     return module
 
 

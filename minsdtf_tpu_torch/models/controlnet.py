@@ -20,7 +20,8 @@ rank's rows at the add.
 ``time_embedding.*``, ``down_blocks.*``, ``mid_block.*``), the zero convs
 ``controlnet_down_blocks.{0..11}`` and ``controlnet_mid_block``, and the hint
 branch ``controlnet_cond_embedding.{conv_in, blocks.0..5, conv_out}``. The
-residuals and the hint stay NCHW, the layout the UNet runs in.
+residuals and the hint are (B, C, H, W) laid out channels-last, as the UNet's
+activations are.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ class ControlNet(nn.Module):
     def forward(self, latent: torch.Tensor, t_emb: torch.Tensor, context: torch.Tensor,
                 hint: torch.Tensor) -> List[torch.Tensor]:
         """(B, h, w, 4), (B, 320), (B, S, 768), the (B, w0, h, w) HintNet output ->
-        the 13 NCHW residuals (12 skips + the mid block)."""
+        the 13 (B, C, H, W) residuals (12 skips + the mid block)."""
         temb = embed_time(self.time_embedding, t_emb)
         sharded = spatial.plan(latent.shape[1], latent.shape[2], 4)
         x = conv3(self.conv_in, latent.permute(0, 3, 1, 2), sharded[0], whole_input=True)

@@ -8,7 +8,12 @@ everywhere; one TransformerBlock per attention (self-attn, cross-attn against th
 768-d context, GEGLU-tanh FF x4).
 
 ``forward`` takes and returns the JAX package's layouts (NHWC latents, (B, S, C)
-context) and runs NCHW inside. The CFG cond/uncond pair arrives batched. The down
+context). Inside, activations are (B, C, H, W) tensors laid out channels-last in
+memory: the latent's ``permute(0, 3, 1, 2)`` view, with no copy, then every conv
+(its weight channels-last since :func:`models.common.cast_weights_`), GroupNorm,
+add, concatenation and upsample keeps that layout, a SpatialTransformer's tokens
+are a view of it, and the output's ``permute(0, 2, 3, 1)`` is a dense view again.
+The CFG cond/uncond pair arrives batched. The down
 path and mid block are built and run by functions that
 :mod:`minsdtf_tpu_torch.models.controlnet` shares.
 ``state_dict`` keys are the JAX package's flat module names plus ``.weight`` /
@@ -206,7 +211,7 @@ def down_and_mid_blocks(widths, temb_dim: int, context_dim: int):
 
 
 def run_down_and_mid(down_blocks, mid_block, x, temb, context, sharded=WHOLE):
-    """The down path and the mid block on ``x`` (NCHW, after ``conv_in``). Returns
+    """The down path and the mid block on ``x`` (B, C, H, W, after ``conv_in``). Returns
     the mid block's output and the 12 skips: ``x`` itself, then every down
     ResBlock / SpatialTransformer pair's and downsampler's output. ``sharded[l]``
     says whether level l (``x``'s resolution halved l times) is H-sharded; its
@@ -255,7 +260,7 @@ class UNet(nn.Module):
     def forward(self, latent: torch.Tensor, t_emb: torch.Tensor, context: torch.Tensor,
                 controls: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         """(B, h, w, 4), (B, 320), (B, S, 768) -> (B, h, w, 4). ``controls``: the
-        ControlNet's 13 residuals, NCHW (:class:`models.controlnet.ControlNet`),
+        ControlNet's 13 residuals, (B, C, H, W) (:class:`models.controlnet.ControlNet`),
         added to the 12 skips and the mid block's output (this rank's rows at the
         H-sharded levels, as the ControlNet under the same scope gives them)."""
         temb = embed_time(self.time_embedding, t_emb)

@@ -11,9 +11,11 @@ ResBlocks at 128 -> GN+SiLU -> conv 3. The VAE ResBlock has no time embedding; i
 attention block is single-head over h*w tokens scaled by 1/sqrt(C).
 
 The encoder takes NHWC images in [-1, 1] and returns NHWC latents; the decoder
-the other way round. Under :func:`ops.attention.sequence_parallel_scope` each
-resolution that :func:`parallel.spatial.plan` marks is H-sharded end to end,
-where the JAX package anchors it (``minsdtf_tpu/models/vae.py:48``, ``:102``):
+the other way round. Inside, activations are (B, C, H, W) laid out channels-last,
+as in :mod:`minsdtf_tpu_torch.models.unet`, and the attention's tokens a view.
+Under :func:`ops.attention.sequence_parallel_scope` each resolution that
+:func:`parallel.spatial.plan` marks is H-sharded end to end, where the JAX package
+anchors it (``minsdtf_tpu/models/vae.py:48``, ``:102``):
 halo-row convs, GroupNorm over the model axis, the single-head attention on the
 sharded ring; the encoder's downsampler out of a sharded level gathers its
 output rows, and the last output of either is gathered once.

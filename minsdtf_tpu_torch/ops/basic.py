@@ -1,9 +1,17 @@
 """Primitive NN ops: conv / dense / norms / activations, plain functions on tensors.
 
-Layouts are PyTorch's: images are NCHW, conv weights OIHW, dense weights
-``(out, in)``. Matmuls and convs run in the dtype of the activations (bf16 in
-production, fp32 in parity tests) with fp32 accumulation; the weight and bias are
-cast to that dtype. Normalization statistics are always fp32.
+Shapes are PyTorch's: images (B, C, H, W), conv weights (O, I, kh, kw), dense
+weights ``(out, in)``. In memory the models keep images and conv weights
+channels-last (NHWC and OHWI, ``torch.channels_last``), the layout cuDNN's Hopper
+convolutions take, so no convolution transposes its input or its weight;
+:func:`conv2d` counts the calls that would (``conv2d.layout_misses``). Matmuls and
+convs run in the dtype of the activations (bf16 in production, fp32 in parity
+tests) with fp32 accumulation; the weight and bias are cast to that dtype.
+Normalization statistics are fp32 or wider. :func:`group_norm` and
+:func:`group_norm_silu` run the hand-written NHWC kernel
+(:mod:`minsdtf_tpu_torch.ops.group_norm`) on the calls it takes and the plain
+composition on the rest, and count each (``group_norm.kernel_calls``,
+``group_norm.plain_calls``).
 
 :func:`int8_conv2d` and :func:`int8_dense` run a W8A8 site
 (:class:`minsdtf_tpu_torch.models.common.Int8Site`, made by
@@ -21,6 +29,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from minsdtf_tpu_torch.ops import group_norm as gn_kernel
 
 Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
 
@@ -41,16 +51,48 @@ def _pads(padding: Padding) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     return tuple((int(a), int(b)) for a, b in padding)
 
 
+def nhwc_strides(shape) -> Tuple[int, int, int, int]:
+    """The strides of a 4-D tensor of ``shape`` laid out channels-last, written
+    out as ``torch.empty(..., memory_format=torch.channels_last)`` gives them."""
+    _, c, h, w = shape
+    return (h * w * c, 1, w * c, c)
+
+
+def nhwc_view(t: torch.Tensor) -> torch.Tensor:
+    """The 4-D ``t`` with :func:`nhwc_strides` written out where its memory is
+    dense NHWC already (a view of the same memory), else ``t``. A 1x1 conv weight
+    or an image of one pixel is dense in both layouts, and PyTorch picks the layout
+    of a convolution or an upsample from the strides, so they are set, not left to
+    chance."""
+    if t.stride() != nhwc_strides(t.shape) and t.is_contiguous(memory_format=torch.channels_last):
+        return t.as_strided(t.shape, nhwc_strides(t.shape))
+    return t
+
+
+def channels_last(t: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``t`` (4-D) in ``dtype`` laid out channels-last, with :func:`nhwc_strides`:
+    a copy unless its memory is so already."""
+    return nhwc_view(t.to(dtype or t.dtype, memory_format=torch.channels_last))
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
            stride: int = 1, padding: Padding = 0) -> torch.Tensor:
-    """2-D convolution, NCHW x OIHW. ``padding`` is an int (symmetric) or explicit
-    ``((top, bottom), (left, right))``, as the VAE encoder's stride-2
-    ``((0, 1), (0, 1))`` needs."""
+    """2-D convolution, (B, C, H, W) x (O, I, kh, kw). ``padding`` is an int
+    (symmetric) or explicit ``((top, bottom), (left, right))``, as the VAE
+    encoder's stride-2 ``((0, 1), (0, 1))`` needs. A call whose input is not dense
+    NHWC in memory, or whose weight does not have :func:`nhwc_strides`, counts in
+    ``conv2d.layout_misses``: the convolution then transposes one of them."""
     if not isinstance(padding, int):
         (top, bottom), (left, right) = padding
         x = F.pad(x, (left, right, top, bottom))
         padding = 0
+    if not (x.is_contiguous(memory_format=torch.channels_last)
+            and weight.stride() == nhwc_strides(weight.shape)):
+        conv2d.layout_misses += 1
     return F.conv2d(x, weight.to(x.dtype), _cast(bias, x.dtype), stride=stride, padding=padding)
+
+
+conv2d.layout_misses = 0
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -58,19 +100,42 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = 
     return F.linear(x, weight.to(x.dtype), _cast(bias, x.dtype))
 
 
-def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over the channel axis of NCHW, fp32 statistics and affine (fp64
-    in fp64)."""
+def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the channel axis, fp32 statistics and affine (fp64 in fp64),
+    by PyTorch's GroupNorm between two casts."""
     wide = stats_dtype(x.dtype)
     out = F.group_norm(x.to(wide), num_groups, weight.to(wide), bias.to(wide), eps)
     return out.to(x.dtype)
 
 
+def _group_norm(x, weight, bias, num_groups: int, eps: float, act: bool) -> torch.Tensor:
+    if gn_kernel.takes(x, weight, bias, num_groups):
+        out = gn_kernel.group_norm_nhwc(x, weight, bias, eps, silu=act)
+        group_norm.kernel_calls += 1
+        return out
+    group_norm.plain_calls += 1
+    out = group_norm_plain(x, weight, bias, num_groups, eps)
+    return silu(out) if act else out
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the channel axis: the NHWC kernel (fp64 statistics, fp32
+    affine) where :func:`ops.group_norm.takes` says so, else
+    :func:`group_norm_plain`."""
+    return _group_norm(x, weight, bias, num_groups, eps, act=False)
+
+
 def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm + SiLU, the prologue of every ResBlock conv."""
-    return silu(group_norm(x, weight, bias, num_groups, eps))
+    """GroupNorm + SiLU, the prologue of every ResBlock conv: fused in the kernel,
+    SiLU after :func:`group_norm_plain` on the plain path."""
+    return _group_norm(x, weight, bias, num_groups, eps, act=True)
+
+
+group_norm.kernel_calls = 0
+group_norm.plain_calls = 0
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -109,7 +174,16 @@ def gelu_gate(h: torch.Tensor) -> torch.Tensor:
 
 def upsample2x_conv3x3(x: torch.Tensor, weight: torch.Tensor,
                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``conv2d(nearest_2x(x), padding=1)``: the UNet and VAE upsamplers."""
+    """``conv2d(nearest_2x(x), padding=1)``: the UNet and VAE upsamplers. With a
+    channels-last weight (a model after :func:`models.common.cast_weights_`), and on
+    the card, whose GroupNorm kernel takes NHWC memory only, ``x``'s strides are
+    written out first (:func:`nhwc_view`): the upsample picks its output's layout
+    from them, and a one-pixel level is dense in both layouts. A model with OIHW
+    weights on the CPU keeps PyTorch's choice there, whose convolutions round as the
+    golden latents were recorded (``test_torch_samplers.py``'s DPM golden differs
+    in the last bits otherwise)."""
+    if x.device.type == "cuda" or weight.stride() == nhwc_strides(weight.shape):
+        x = nhwc_view(x)
     return conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), weight, bias, padding=1)
 
 

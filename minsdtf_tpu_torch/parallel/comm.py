@@ -55,32 +55,46 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     return out.to(t.dtype)
 
 
+def _parts(t: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's ``t`` of ``group`` in group-rank order, laid out as ``t``: a 4-D
+    ``t`` whose memory is dense NHWC (channels-last) travels as its NHWC view, which
+    is contiguous, so neither side copies it into another layout."""
+    nhwc = t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last)
+    sent = (t.permute(0, 2, 3, 1) if nhwc else t).contiguous()
+    parts = [torch.empty_like(sent) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, sent, group=group, async_op=True).wait(TIMEOUT)
+    return [p.permute(0, 3, 1, 2) for p in parts] if nhwc else parts
+
+
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every rank's ``t`` of ``group``, concatenated along ``dim`` in group-rank
-    order."""
+    order; channels-last from a channels-last ``t``."""
     t0 = time.perf_counter()
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group, async_op=True).wait(TIMEOUT)
+    parts = _parts(t, group)
     _count("all_gather", t.numel() * t.element_size() * len(parts), t0)
     return torch.cat(parts, dim=dim)
 
 
+def cat_rows(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``parts`` of (B, C, H, W) tensors concatenated along H, the empty ones left
+    out: with an empty part ``torch.cat`` lays its result out NCHW whatever the
+    others' layout, and without one it keeps their common layout."""
+    return torch.cat([p for p in parts if p.shape[2]] or list(parts[:1]), dim=2)
+
+
 def halo_exchange(x: torch.Tensor, group, top: int, bottom: int):
     """The rows that this rank of ``group`` needs from its neighbours, where each
-    rank holds its slice of H of an NCHW tensor in group-rank order: ``(above,
-    below)``, the previous rank's last ``top`` rows and the next rank's first
-    ``bottom`` rows, zeros past the first and last rank. One all-gather of every
+    rank holds its slice of H of a (B, C, H, W) tensor in group-rank order:
+    ``(above, below)``, the previous rank's last ``top`` rows and the next rank's
+    first ``bottom`` rows, zeros past the first and last rank, all in ``x``'s
+    layout (channels-last rows give channels-last edges). One all-gather of every
     rank's (first ``bottom``, last ``top``) rows moves both edges."""
     t0 = time.perf_counter()
     n, r, h = dist.get_world_size(group), dist.get_rank(group), x.shape[2]
-    edge = torch.cat([x[:, :, :bottom], x[:, :, h - top:]], dim=2).contiguous()
-    parts = [torch.empty_like(edge) for _ in range(n)]
-    dist.all_gather(parts, edge, group=group, async_op=True).wait(TIMEOUT)
-    above = (parts[r - 1][:, :, bottom:] if r > 0
-             else x.new_zeros(*x.shape[:2], top, x.shape[3]))
-    below = (parts[r + 1][:, :, :bottom] if r < n - 1
-             else x.new_zeros(*x.shape[:2], bottom, x.shape[3]))
+    edge = cat_rows([x[:, :, :bottom], x[:, :, h - top:]])
+    parts = _parts(edge, group)
+    above = parts[r - 1][:, :, bottom:] if r > 0 else torch.zeros_like(edge[:, :, bottom:])
+    below = parts[r + 1][:, :, :bottom] if r < n - 1 else torch.zeros_like(edge[:, :, :bottom])
     _count("halo", edge.numel() * edge.element_size() * n, t0)
     return above, below
 

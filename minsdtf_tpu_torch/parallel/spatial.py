@@ -1,4 +1,5 @@
-"""Spatial sequence parallelism: operations on H-sharded NCHW activations.
+"""Spatial sequence parallelism: operations on H-sharded (B, C, H, W) activations,
+channels-last in memory as the models keep them, and channels-last out.
 
 Under :func:`minsdtf_tpu_torch.ops.attention.sequence_parallel_scope` every
 activation at a resolution that :func:`~minsdtf_tpu_torch.ops.attention.spatial_sharded`
@@ -71,7 +72,7 @@ def _rows(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
 
 
 def local_rows(x: torch.Tensor) -> torch.Tensor:
-    """This rank's rows of the whole NCHW ``x``. No transfer."""
+    """This rank's rows of the whole (B, C, H, W) ``x``. No transfer."""
     _, n, r = _axis()
     calls["local_rows"] += 1
     part = x.shape[2] // n
@@ -79,7 +80,10 @@ def local_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The whole NCHW tensor from every rank's rows: an all-gather along H."""
+    """The whole (B, C, H, W) tensor from every rank's rows: an all-gather along H,
+    channels-last from channels-last rows (:func:`.comm.all_gather`), as the whole
+    levels after it take it (their GroupNorm kernel on the card takes NHWC memory
+    only)."""
     group, _, _ = _axis()
     calls["gather_rows"] += 1
     return comm.all_gather(x, group, dim=2)
@@ -95,8 +99,8 @@ def _conv_rows(conv, x: torch.Tensor, stride: int, left: int, right: int) -> tor
 
 def halo_conv2d(conv, x: torch.Tensor, stride: int = 1, padding: Padding = 1,
                 whole_input: bool = False) -> torch.Tensor:
-    """``conv`` (an ``nn.Conv2d``) on this rank's rows of an H-sharded NCHW
-    activation, giving this rank's output rows. A kernel of k rows at stride s
+    """``conv`` (an ``nn.Conv2d``) on this rank's rows of an H-sharded
+    activation, giving this rank's output rows in its layout. A kernel of k rows at stride s
     with top padding p needs p rows from the rank above and k - s - p from the
     rank below: 1 and 1 for the 3x3 stride-1 convs, 1 and 0 for the UNet's
     downsampler (stride 2, padding 1), 0 and 1 for the VAE encoder's (stride 2,
@@ -111,27 +115,29 @@ def halo_conv2d(conv, x: torch.Tensor, stride: int = 1, padding: Padding = 1,
         rows = _rows(x, r * part - top, (r + 1) * part + bottom)
     else:
         above, below = comm.halo_exchange(x, group, top, bottom)
-        rows = torch.cat([above, x, below], dim=2)
+        rows = comm.cat_rows([above, x, below])
     return _conv_rows(conv, rows, stride, left, right)
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, silu: bool = False,
                num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm of an H-sharded NCHW activation with the whole image's statistics:
-    the fp32 mean from the group's all-reduced sum, then the fp32 variance from the
+    """GroupNorm of an H-sharded activation with the whole image's statistics: the
+    fp32 mean from the group's all-reduced sum, then the fp32 variance from the
     all-reduced sum of squared deviations, each over the global count; the affine
-    in fp32, the cast, then SiLU when ``silu`` (as ``ops.basic.group_norm_silu``)."""
+    in fp32, the cast, then SiLU when ``silu`` (as ``ops.basic.group_norm_silu``).
+    Computed over the NHWC view, so channels-last rows are read in place, and the
+    output is channels-last in any case."""
     group, n, _ = _axis()
     calls["group_norm"] += 1
     wide = stats_dtype(x.dtype)
     b, c, h, w = x.shape
-    xf = x.to(wide).reshape(b, num_groups, -1)
-    count = xf.shape[-1] * n  # every rank holds H/n of the rows
-    mean = comm.all_reduce_sum(xf.sum(-1), group) / count
-    dev = xf - mean[..., None]
-    var = comm.all_reduce_sum(dev.square().sum(-1), group) / count
-    out = (dev * torch.rsqrt(var + eps)[..., None]).reshape(b, c, h, w)
-    out = (out * weight.to(wide)[:, None, None] + bias.to(wide)[:, None, None]).to(x.dtype)
+    xf = x.to(wide).permute(0, 2, 3, 1).reshape(b, h * w, num_groups, c // num_groups)
+    count = h * w * (c // num_groups) * n  # every rank holds H/n of the rows
+    mean = comm.all_reduce_sum(xf.sum((1, 3)), group) / count
+    dev = xf - mean[:, None, :, None]
+    var = comm.all_reduce_sum(dev.square().sum((1, 3)), group) / count
+    out = (dev * torch.rsqrt(var + eps)[:, None, :, None]).reshape(b, h, w, c)
+    out = (out * weight.to(wide) + bias.to(wide)).to(x.dtype).permute(0, 3, 1, 2)
     return silu_fn(out) if silu else out
 
 
@@ -151,6 +157,6 @@ def upsample2x_conv3x3(conv, x: torch.Tensor, whole_input: bool) -> torch.Tensor
         up = up[:, :, a - 1 - 2 * lo:b + 1 - 2 * lo]
     else:
         above, below = comm.halo_exchange(x, group, 1, 1)
-        up = F.interpolate(torch.cat([above, x, below], dim=2), scale_factor=2, mode="nearest")
+        up = F.interpolate(comm.cat_rows([above, x, below]), scale_factor=2, mode="nearest")
         up = up[:, :, 1:-1]
     return _conv_rows(conv, up, 1, 1, 1)

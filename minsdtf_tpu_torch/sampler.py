@@ -53,9 +53,11 @@ call into the same cache. The capture's error mode is ``thread_local``: a thread
 that touches the card while another captures does not break the capture.
 
 The kernels' launch counters (``onepass_attention.launches``,
-``online_attention.launches``, ``int8_matmul.calls``) count in Python, which a
-replay never runs: a capture's change to them is taken back and added once for
-each replay, so they read what the loop reads.
+``online_attention.launches``, ``int8_matmul.calls``, ``group_norm_nhwc.launches``,
+``group_norm.kernel_calls``) and the models' layout counters (``group_norm.plain_calls``,
+``conv2d.layout_misses``) count in Python, which a replay never runs: a capture's
+change to them is taken back and added once for each replay, so they read what the
+loop reads.
 
 A capture that fails raises and its program is dropped; an exception from a
 replay or a ``callback`` leaves the program for the next call. Nothing falls back
@@ -77,13 +79,16 @@ from minsdtf_tpu_torch import profiling
 from minsdtf_tpu_torch.ops import attention as attention_ops
 from minsdtf_tpu_torch.ops import basic
 from minsdtf_tpu_torch.ops import flash_attention as fa
+from minsdtf_tpu_torch.ops import group_norm as gn_kernel
 from minsdtf_tpu_torch.ops.basic import stats_dtype
 from minsdtf_tpu_torch.scheduler import MODES
 
 MAX_PROGRAMS = 8  # a pipeline's signatures: the server's merged batches 4, 2, 1 and more
 # the counters a replay must advance: (function, attribute)
 COUNTERS = ((fa.onepass_attention, "launches"), (fa.online_attention, "launches"),
-            (basic.int8_matmul, "calls"))
+            (basic.int8_matmul, "calls"), (basic.group_norm, "kernel_calls"),
+            (basic.group_norm, "plain_calls"), (basic.conv2d, "layout_misses"),
+            (gn_kernel.group_norm_nhwc, "launches"))
 
 
 def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: torch.Tensor,
@@ -204,8 +209,8 @@ def _check_args(mode: str, step_noise, latent0, t_embs) -> None:
 def _dense(latent0, inpaint: Optional[Inpaint], step_noise):
     """The latent-shaped inputs in the NHWC order in memory. Each step's
     elementwise ops lay their output out as their first operand, so an input laid
-    out otherwise (the VAE encoder's latent is NCHW in memory) would carry its
-    layout into the latent, and the decoder's and the UNet's convolutions would run
+    out otherwise (the VAE encoder's latent is a slice of its 8 channels) would carry
+    its layout into the latent, and the decoder's and the UNet's convolutions would run
     in another memory format, with other kernels, than on a program's buffers."""
     if inpaint is not None:
         inpaint = Inpaint(*(t.contiguous() for t in inpaint))

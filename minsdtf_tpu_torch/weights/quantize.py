@@ -68,12 +68,13 @@ def _per_in(t: torch.Tensor, ndim: int) -> torch.Tensor:
 
 def quantize_kernel(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 values, fp32 per-output-channel scales) of a conv (OIHW) or dense
-    ``(out, in)`` weight, on its device."""
+    ``(out, in)`` weight, on its device. The values are dense in that order also
+    where the weight is channels-last (a cast model's)."""
     w = weight.detach().float()
     amax = w.abs().amax(dim=tuple(range(1, w.dim())))
     scale = _div(amax.clamp(min=1e-12), 127.0)
     q = torch.round(w / _per_out(scale, w.dim())).clamp(-127, 127).to(torch.int8)
-    return q, scale
+    return q.contiguous(), scale
 
 
 def _bias(m: nn.Module) -> Optional[torch.Tensor]:

@@ -704,3 +704,102 @@ def test_a_failing_capture_raises_and_keeps_no_program(cuda):
     img, lat = tsampler.generate(unet, *rest, 7.5, 0.7, programs=programs, **kw)
     want_img, want_lat = tsampler._generate_eager(unet, *rest, 7.5, 0.7, **kw)
     assert torch.equal(img, want_img) and torch.equal(lat, want_lat)
+
+
+# ---- the NHWC GroupNorm kernel ------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", chip_smoke.GN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_group_norm_kernel_matches_plain(cuda, case):
+    """The kernel at every UNet and VAE GroupNorm shape at 512px and 1024px at
+    batch 1, 2 and 16, and ragged shapes, in bf16 and fp32, with and without SiLU,
+    against the plain composition and fp64 (:func:`chip_smoke.gn_check`)."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(case))
+    for dtype in (torch.bfloat16, torch.float32):
+        for silu in (False, True):
+            result = chip_smoke.gn_check(case, dtype, silu, gen)
+            assert result["ok"], result
+    torch.cuda.empty_cache()
+
+
+def test_group_norm_routes_and_refuses_on_the_card(cuda):
+    """bf16 and fp32 channels-last tensors go to the kernel; a CUDA tensor NCHW in
+    memory or off 16 bytes raises and is not copied; fp64, fp16, other group counts
+    and a call autograd records take the plain composition, with its gradient."""
+    from minsdtf_tpu_torch.ops import group_norm as tgn
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, weight, bias = chip_smoke.gn_inputs(2, 16, 16, 320, torch.bfloat16, gen)
+    kernel, plain = tbasic.group_norm.kernel_calls, tbasic.group_norm.plain_calls
+    launches = tgn.group_norm_nhwc.launches
+    for t in (x, x.float()):
+        out = tbasic.group_norm_silu(t, weight, bias)
+        assert out.stride() == tbasic.nhwc_strides(out.shape) and out.dtype == t.dtype
+    assert tbasic.group_norm.kernel_calls == kernel + 2
+    assert tgn.group_norm_nhwc.launches == launches + 2 * tgn.KERNELS
+    with pytest.raises(ValueError, match="NHWC"):
+        tbasic.group_norm(x.contiguous(), weight, bias)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:]
+    shifted = flat.view(2, 16, 16, 320).permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tbasic.group_norm(shifted, weight, bias)
+    assert tbasic.group_norm.kernel_calls == kernel + 2  # refused, not launched
+    assert tgn.group_norm_nhwc.launches == launches + 2 * tgn.KERNELS
+    for t, groups in ((x.double(), 32), (x.half(), 32), (x, 16)):
+        tbasic.group_norm(t, weight, bias, num_groups=groups)
+    leaf = x.float().requires_grad_()
+    out = tbasic.group_norm_silu(leaf, weight, bias)
+    out.float().square().sum().backward()
+    assert leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
+    assert tbasic.group_norm.plain_calls == plain + 4
+
+
+def test_captured_512px_step_runs_every_group_norm_on_the_kernel(cuda):
+    """The full-width bf16 UNet and decoder at 512px (a 64x64 latent, the CFG pair)
+    through the captured program: each GroupNorm on the kernel (61 a UNet call, 30
+    in the decode), none on the plain composition, no convolution that transposes,
+    and the step loop's image and latent bit for bit."""
+    from minsdtf_tpu_torch import sampler as tsampler
+    from minsdtf_tpu_torch import scheduler as tsched
+    from minsdtf_tpu_torch.models import unet as unet_lib
+    from minsdtf_tpu_torch.models import vae as vae_lib
+    from minsdtf_tpu_torch.models.common import cast_weights_
+
+    unet = cast_weights_(unet_lib.fuse_attention_projections(unet_lib.init(cuda, seed=0)),
+                         torch.bfloat16).eval()
+    decoder = cast_weights_(vae_lib.init_decoder(cuda, seed=2), torch.bfloat16).eval()
+    schedule = tsched.build_denoise_schedule(tsched.make_scheduler("ddim"), 2)
+    gen = torch.Generator().manual_seed(5)
+    args = (unet, decoder, torch.randn(1, 64, 64, 4, generator=gen).to(cuda, torch.bfloat16),
+            torch.randn(1, 77, 768, generator=gen).to(cuda),
+            torch.randn(1, 77, 768, generator=gen).to(cuda),
+            torch.from_numpy(tsched.timestep_embedding(schedule.timesteps)).to(cuda),
+            schedule.rows, 7.5, 0.7)
+    (want_img, want_lat), want = _counted(lambda: tsampler._generate_eager(*args))
+    programs = tsampler.ProgramCache()
+    for call in ("capture", "replay"):
+        (img, lat), counts = _counted(lambda: tsampler.generate(*args, programs=programs))
+        assert torch.equal(img, want_img) and torch.equal(lat, want_lat), call
+        assert counts == want, (call, counts, want)
+        # GroupNorm kernel calls, plain calls, layout misses, the kernel's launches
+        assert counts[3:] == [61 * 2 + 30, 0, 0, 3 * (61 * 2 + 30)], call
+
+
+def test_an_uncast_model_through_a_one_pixel_level_runs_on_the_kernel(cuda):
+    """A UNet whose conv weights stay OIHW (assigned, not loaded) at an 8x8 latent:
+    its last level is one pixel, dense in both layouts, and the upsample out of it
+    keeps the activations NHWC in memory for the GroupNorm kernel. The output
+    matches the CPU's."""
+    from minsdtf_tpu_torch.models import unet as unet_lib
+
+    unet = unet_lib.init("cpu", seed=0, widths=(32, 64, 128, 128), temb_dim=128).eval()
+    gen = torch.Generator().manual_seed(4)
+    args = (torch.randn(2, 8, 8, 4, generator=gen), torch.randn(2, 32, generator=gen),
+            torch.randn(2, 77, 768, generator=gen))
+    with torch.inference_mode():
+        want = unet(*args)
+        kernel = tbasic.group_norm.kernel_calls
+        got = unet.to(cuda)(*(t.to(cuda) for t in args))
+    torch.cuda.synchronize()
+    assert tbasic.group_norm.kernel_calls - kernel == 61
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3 * float(want.abs().max()))

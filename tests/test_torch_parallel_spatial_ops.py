@@ -80,6 +80,23 @@ def test_group_norm_over_the_axis_matches_jax(runs, n):
                                            rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("n", [2, 4])
+def test_rows_gather_channels_last(runs, n):
+    """Channels-last rows and weights give channels-last output rows from every
+    sharded operation, and a channels-last whole from their gather, as the whole
+    levels after a gather take it (their GroupNorm kernel on the card takes NHWC
+    memory only), with the values of the NCHW runs."""
+    _, got = runs
+    for outs, _, _ in got[n]:
+        for dtype in ("float64", "float32"):
+            layout = outs[dtype, "channels-last"]
+            assert all(layout.values()), layout
+            for case in list(CONVS) + ["upsample sharded input", "group_norm silu=True"]:
+                np.testing.assert_allclose(outs[dtype, f"{case} channels-last"],
+                                           outs[dtype, case], rtol=1e-6, atol=1e-6,
+                                           err_msg=case)
+
+
 def test_calls_and_collectives(runs):
     _, got = runs
     for n in (2, 4):

@@ -17,6 +17,7 @@ from minsdtf_tpu_torch.models import controlnet as tcontrolnet
 from minsdtf_tpu_torch.models import unet as tunet
 from minsdtf_tpu_torch.models import vae as tvae
 from minsdtf_tpu_torch.ops import attention as tattn
+from minsdtf_tpu_torch.ops import basic as tbasic
 from minsdtf_tpu_torch.ops import ring_attention as tring
 from minsdtf_tpu_torch.parallel import sharding, spatial
 from minsdtf_tpu_torch.parallel.mesh import make_mesh
@@ -181,7 +182,9 @@ def spatial_ops(inputs: dict):
     each conv case of ``inputs["convs"]`` (name: (stride, padding)) by
     ``halo_conv2d`` on this rank's rows of ``inputs["x"]`` (and once with
     ``whole_input``), the upsampler into a sharded level from a whole and from a
-    sharded input, and ``group_norm`` (with and without SiLU), each gathered.
+    sharded input, and ``group_norm`` (with and without SiLU), each gathered; then
+    the same on channels-last inputs and weights, with whether each output and its
+    gathered whole are channels-last.
     Returns ``{(dtype, case): whole output}``, the spatial calls and the
     collectives."""
     from minsdtf_tpu_torch.parallel import comm, spatial
@@ -212,7 +215,29 @@ def spatial_ops(inputs: dict):
             for silu in (False, True):
                 got = spatial.group_norm(spatial.local_rows(gn), scale, shift, silu=silu)
                 out[name, f"group_norm silu={silu}"] = spatial.gather_rows(got).numpy()
-    return out, dict(spatial.calls), {k: v["calls"] for k, v in comm.stats.items()}
+        counts = dict(spatial.calls), {k: v["calls"] for k, v in comm.stats.items()}
+        for dtype in (torch.float64, torch.float32):  # not counted above
+            name = str(dtype).split(".")[-1]
+            x, gn = (tbasic.channels_last(torch.from_numpy(inputs[k]).to(dtype))
+                     for k in ("x", "gn_x"))
+            conv, up = (_conv(inputs[w], inputs[b], dtype)
+                        for w, b in (("weight", "bias"), ("up_weight", "up_bias")))
+            for m in (conv, up):
+                m.weight.data = tbasic.channels_last(m.weight.data)
+            rows = {case: spatial.halo_conv2d(conv, spatial.local_rows(x), stride, padding)
+                    for case, (stride, padding) in inputs["convs"].items()}
+            rows["upsample sharded input"] = spatial.upsample2x_conv3x3(
+                up, spatial.local_rows(x), whole_input=False)
+            rows["group_norm silu=True"] = spatial.group_norm(spatial.local_rows(gn), scale,
+                                                              shift, silu=True)
+            layout = {}
+            for case, part in rows.items():
+                whole = spatial.gather_rows(part)
+                layout[case] = part.is_contiguous(memory_format=torch.channels_last)
+                layout[f"{case} gathered"] = whole.is_contiguous(memory_format=torch.channels_last)
+                out[name, f"{case} channels-last"] = whole.numpy()
+            out[name, "channels-last"] = layout
+    return (out, *counts)
 
 
 class _Recording:
