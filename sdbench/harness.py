@@ -2,10 +2,12 @@
 comparison with the reference, the metrics.
 
 Everything a cell needs is found by name: the configuration's file
-(``BENCHMARK.json`` names it), the traffic mix ``traffic/<mix>.json``, the cell's
-own settings ``workloads/<cell>.json`` (warm-up, the traced segment, how many
-requests the reference checks and the limits of the numbers it compares), and one
-reader a metric, ``metrics/<metric>.py``.
+(``BENCHMARK.json`` names it), whose ``family`` names the module of all that
+depends on the architecture (``families/<family>.py``), the traffic mix
+``traffic/<mix>.json``, the cell's own settings ``workloads/<cell>.json``
+(warm-up, the traced segment, how many requests the reference checks and the
+limits of the numbers it compares), and one reader a metric,
+``metrics/<metric>.py``.
 
 The window is measured with nothing instrumented. A ``--trace 1`` run measures
 the same window, then runs a traced segment of the same traffic (its device
@@ -26,7 +28,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from sdbench import flops, sut, traffic
+from sdbench import families, flops, sut, traffic
 from sdbench import trace as trace_lib
 from sdbench import weights as weights_lib
 
@@ -92,10 +94,6 @@ def load_reader(name: str):
     return module.read
 
 
-def kinds(cfg: dict) -> List[str]:
-    return ["text_encoder", "unet", "vae"] + (["controlnet"] if "controlnet" in cfg else [])
-
-
 def _log(*args) -> None:
     print(*args, file=sys.stderr, flush=True)
 
@@ -109,8 +107,9 @@ class Cell:
         self.cfg, self.mix, self.settings, self.seed = cfg, mix, settings, int(seed)
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
+        self.family = families.load(cfg)
         # (cfg, weights, mix, device, merges, compute dtype) -> the system under test
-        self.make_pipe = make_pipe or sut.build_pipeline
+        self.make_pipe = make_pipe or self.family.build_pipeline
         self.merges = str(ROOT / cfg["tokenizer"]["merges"])
         self.pipe = None
         self.outputs: Dict[tuple, np.ndarray] = {}  # (stream, index) -> uint8 (B, H, W, 3) images
@@ -119,7 +118,7 @@ class Cell:
     # ---- set-up ----
 
     def setup(self, t_start: float) -> None:
-        w = weights_lib.make(self.cfg, kinds(self.cfg), self.seed, self.device)
+        w = weights_lib.make(self.cfg, self.seed, self.device)
         self.pipe = self.make_pipe(self.cfg, w, self.mix, self.device, self.merges, self.compute_dtype)
         del w
         self._free()
@@ -328,14 +327,12 @@ class Cell:
 
 
 def reference(cfg: dict, seed: int, merges: str, device, ops=None):
-    """The fp32 reference on ``device`` with the weights of ``seed`` made anew,
-    products in full fp32 (no TF32)."""
-    from sdbench.reference.pipeline import Reference  # noqa: PLC0415
-
+    """The fp32 reference of ``cfg``'s family on ``device`` with the weights of
+    ``seed`` made anew, products in full fp32 (no TF32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    w = weights_lib.make(cfg, kinds(cfg), seed, device)
-    return Reference(cfg, w, merges, device, ops)
+    w = weights_lib.make(cfg, seed, device)
+    return families.load(cfg).Reference(cfg, w, merges, device, ops)
 
 
 def _take(it, n: int) -> list:
@@ -365,7 +362,7 @@ def run(cell: dict, cfg: dict, mix: dict, settings: dict, metrics: List[dict], s
     c.teardown()
     checks = c.compare()
     name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
-    rec.window_flops = sum(flops.request_flops(cfg, mix, r) for r in rec.done_requests)
+    rec.window_flops = sum(c.family.request_flops(cfg, mix, r) for r in rec.done_requests)
     if dev.type == "cuda":  # a share of the card's peak is read on the card only
         peak = flops.peaks(name)
         rec.peak_flops = flops.peak_flops(peak, cfg["dtype"])

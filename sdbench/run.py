@@ -50,10 +50,9 @@ def main() -> int:
         return 2
 
     sys.path.insert(0, str(ROOT))
-    from sdbench import harness, traffic
+    from sdbench import families, harness, traffic
 
-    cfg_file = next(c["file"] for c in bench["configs"] if c["name"] == cell["config"])
-    cfg = json.loads((ROOT / cfg_file).read_text())
+    cfg = families.read(ROOT / next(c["file"] for c in bench["configs"] if c["name"] == cell["config"]))
     settings = json.loads((harness.HERE / "workloads" / f"{cell['name']}.json").read_text())
     kind = "per_layer" if args.trace else "end_to_end"
     metrics = [m for m in bench[kind] if cell["name"] in m.get("workloads", [cell["name"]])]

@@ -36,11 +36,11 @@ def main() -> int:
     parser.add_argument("--rates", type=float, nargs="+", required=True)
     args = parser.parse_args()
     sys.path.insert(0, str(ROOT))
-    from sdbench import harness, traffic  # noqa: PLC0415
+    from sdbench import families, harness, traffic  # noqa: PLC0415
 
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     cell = next(w for w in bench["workloads"] if w["name"] == args.workload)
-    cfg = json.loads((ROOT / next(c["file"] for c in bench["configs"] if c["name"] == cell["config"])).read_text())
+    cfg = families.read(ROOT / next(c["file"] for c in bench["configs"] if c["name"] == cell["config"]))
     settings = json.loads((ROOT / "sdbench" / "workloads" / f"{cell['name']}.json").read_text())
     mix = traffic.load(cell["traffic"])
     run = harness.Cell(cell, cfg, mix, settings, args.seed)

@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from sdbench import sut, traffic
+from sdbench import traffic
 from sdbench import weights as weights_lib
-from sdbench.harness import kinds
+from sdbench.families import sd15
 from sdbench.reference import philox
 from sdbench.reference.pipeline import Reference
 from sdbench.reference.text import BPE, prompt_rows
@@ -64,12 +64,12 @@ CASES = [  # (controlnet, mix settings over the 512px mix)
 @pytest.mark.parametrize("controlnet, settings", CASES, ids=["ddim", "controlnet", "tcd-b2", "dpm-karras"])
 def test_reference_agrees_with_the_library(controlnet, settings):
     cfg = small.config(controlnet)
-    w = weights_lib.make(cfg, kinds(cfg), 2**31 + 3, "cpu")
+    w = weights_lib.make(cfg, 2**31 + 3, "cpu")
     mix = dict(traffic.load("t2i512-edges-closed" if controlnet else "t2i512-closed"), height=64, width=64,
                steps=4)
     mix.update(settings)
     with small.library_widths(cfg):
-        pipe = sut.build_pipeline(cfg, w, mix, "cpu", MERGES, torch.float32)
+        pipe = sd15.build_pipeline(cfg, w, mix, "cpu", MERGES, torch.float32)
     ref = Reference(cfg, w, MERGES, "cpu")
     for i in range(2):
         r = traffic.request(mix, 5, 0, i)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 from sdbench import flops, harness, traffic
+from sdbench.families import sd15
 from sdbench.tests import small
 
 BENCH = json.loads((small.ROOT / "BENCHMARK.json").read_text())
@@ -24,18 +25,18 @@ def test_attention_bound_reproduces_the_kernel_table(shape, ms):
 
 def test_reference_flops_of_the_unet_and_the_decode():
     cfg = json.loads((small.ROOT / "sdbench/configs/sd15.json").read_text())
-    assert round(flops.model_flops(cfg, "unet", 2, 512, 512) / 1e12, 4) == 1.6065
-    assert round(flops.model_flops(cfg, "vae", 1, 512, 512) / 1e12, 4) == 2.5145
+    assert round(sd15.model_flops(cfg, "unet", 2, 512, 512) / 1e12, 4) == 1.6065
+    assert round(sd15.model_flops(cfg, "vae", 1, 512, 512) / 1e12, 4) == 2.5145
 
 
 def test_long_attentions_count_the_kernels_launches():
     cfg = json.loads((small.ROOT / "sdbench/configs/sd15-controlnet-canny.json").read_text())
     t2i = traffic.load("t2i512-closed")
-    calls = {shape: n for n, shape in flops.long_attentions(cfg, t2i)}
+    calls = {shape: n for n, shape in sd15.long_attentions(cfg, t2i)}
     assert calls == {(2, 4096, 8, 40): 125, (2, 1024, 8, 80): 125, (1, 4096, 1, 512): 1}
-    cn = sum(n for n, _ in flops.long_attentions(cfg, traffic.load("t2i512-edges-closed")))
+    cn = sum(n for n, _ in sd15.long_attentions(cfg, traffic.load("t2i512-edges-closed")))
     assert cn == 351  # K1 350, K2 1
-    big = {shape: n for n, shape in flops.long_attentions(cfg, traffic.load("t2i1024-closed"))}
+    big = {shape: n for n, shape in sd15.long_attentions(cfg, traffic.load("t2i1024-closed"))}
     assert big[(2, 16384, 8, 40)] == 125 and big[(1, 16384, 1, 512)] == 1 and len(big) == 4
 
 
@@ -141,11 +142,11 @@ def test_request_flops_follow_the_requests_settings():
     cfg = json.loads((small.ROOT / "sdbench/configs/sd15.json").read_text())
     mix = traffic.load("t2i512-closed")
     one = traffic.request(mix, 1, traffic.WINDOW, 0)
-    text = flops.model_flops(cfg, "text_encoder", 1, 512, 512)
-    vae = flops.model_flops(cfg, "vae", 1, 512, 512)
-    assert flops.request_flops(cfg, mix, one) == flops.request_flops(cfg, mix) == \
-        text + vae + 25 * flops.model_flops(cfg, "unet", 2, 512, 512)
+    text = sd15.model_flops(cfg, "text_encoder", 1, 512, 512)
+    vae = sd15.model_flops(cfg, "vae", 1, 512, 512)
+    assert sd15.request_flops(cfg, mix, one) == sd15.request_flops(cfg, mix) == \
+        text + vae + 25 * sd15.model_flops(cfg, "unet", 2, 512, 512)
     eight = traffic.request(dict(mix, batch_size=8, steps=4, guidance=0.0), 1, traffic.WINDOW, 0)
-    assert flops.request_flops(cfg, mix, eight) == text + 8 * (vae + 4 * flops.model_flops(cfg, "unet", 1, 512, 512))
-    calls = {shape: n for n, shape in flops.long_attentions(cfg, mix, eight)}
+    assert sd15.request_flops(cfg, mix, eight) == text + 8 * (vae + 4 * sd15.model_flops(cfg, "unet", 1, 512, 512))
+    calls = {shape: n for n, shape in sd15.long_attentions(cfg, mix, eight)}
     assert calls == {(8, 4096, 8, 40): 20, (8, 1024, 8, 80): 20, (8, 4096, 1, 512): 1}

@@ -1,7 +1,8 @@
 """Random weights from the seed, in the published (diffusers / transformers)
 parameter names, made on the device in one draw.
 
-The names and shapes come from the reference's models built on the meta device.
+The names and shapes come from the reference's models of the configuration's
+family (``sdbench/families/``), built on the meta device.
 One standard-normal draw of every parameter's elements from a ``torch.Generator``
 on the device, then each tensor is scaled in place: conv and dense kernels and
 embeddings by 1/sqrt(fan-in) (so activations keep their scale through the depth),
@@ -13,12 +14,12 @@ which a zero-mean shift would put near zero).
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable
+from typing import Dict
 
 import torch
 from torch import nn
 
-from sdbench.reference.models import build
+from sdbench import families
 
 
 def _init(module: nn.Module, name: str, t: torch.Tensor) -> tuple:
@@ -31,13 +32,15 @@ def _init(module: nn.Module, name: str, t: torch.Tensor) -> tuple:
     return 1.0 / math.sqrt(fan_in), 0.0
 
 
-def make(cfg: dict, kinds: Iterable[str], seed: int, device) -> Dict[str, Dict[str, torch.Tensor]]:
-    """``{kind: {name: fp32 tensor}}`` for the models ``kinds`` of ``cfg``, every
-    tensor a view into one buffer on ``device``; the same seed gives the same
-    weights."""
+def make(cfg: dict, seed: int, device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{kind: {name: fp32 tensor}}`` for the models of ``cfg``'s family
+    (its ``kinds``), every tensor a view into one buffer on ``device``; the same
+    seed gives the same weights."""
+    family = families.load(cfg)
+    kinds = family.kinds(cfg)
     plan = []
     for kind in kinds:
-        model = build(kind, cfg)
+        model = family.build(kind, cfg)
         for mod_name, module in model.named_modules():
             for p_name, p in module.named_parameters(recurse=False):
                 full = f"{mod_name}.{p_name}" if mod_name else p_name
